@@ -1,0 +1,321 @@
+"""Online-bagged forest of QO Hoeffding tree regressors (the reference's
+``core/forest.py``, DESIGN.md §5).
+
+T member trees are one program over a leading tree axis: every routing
+pass is one ``forest_route`` over the folded T*M node axis, the absorb is
+one ``forest_update`` over the folded T*M table axis, and the split query
+one compacted ``forest_best_splits`` over the attempting leaves of the
+whole ensemble.  :func:`update` is the prequential step: predict the
+batch with the inverse-error vote, learn it with Poisson(lambda) bagging
+weights, then advance the per-member drift windows and swap out the
+worst drifting member.
+
+Random draws (ROADMAP C3): torch cannot reproduce JAX's threefry bits, so
+:func:`update` takes optional injected ``bag_w`` (T, B) and ``new_masks``
+(T, F).  Without them it draws from the state's own generator, whose
+state rides in ``state["rng"]`` (a uint8 tensor) in place of the
+reference's ``keys``; the same state and batch always give the same step.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import device as dv
+from repro_torch.core import hoeffding as ht
+from repro_torch.core import stats
+from repro_torch.kernels import ops as kops
+
+ForestState = dict
+
+__all__ = ["ForestConfig", "init_forest", "update", "update_stream",
+           "predict", "member_predictions", "vote_weights", "vote_combine"]
+
+
+@dataclass(frozen=True)
+class ForestConfig:
+    """Static forest hyper-parameters (the reference's ``ForestConfig``)."""
+    tree: ht.HTRConfig
+    n_trees: int = 8
+    lam: float = 6.0
+    subspace: float = 0.7
+    vote: str = "inverse_error"
+    vote_power: float = 4.0
+    drift_alpha: float = 0.5
+    drift_decay: float = 0.9
+    drift_kappa: float = 3.0
+    drift_min_batches: int = 8
+
+    def __post_init__(self):
+        if not 0.0 < self.drift_decay < 1.0:
+            raise ValueError(
+                f"drift_decay={self.drift_decay} must be in (0, 1): it is "
+                f"the per-batch retention of the long window's count")
+        limit = 1.0 / (1.0 - self.drift_decay)
+        if self.drift_min_batches >= limit:
+            raise ValueError(
+                f"drift_min_batches={self.drift_min_batches} can never be "
+                f"reached: the decayed window's effective count asymptotes "
+                f"to 1/(1-drift_decay)={limit:.1f}")
+        if self.tree.n_features >= 2 and self.subspace_k() < 2:
+            raise ValueError(
+                f"subspace={self.subspace} leaves each member a single "
+                f"candidate feature; raise subspace so k >= 2")
+        if self.vote not in ("mean", "inverse_error"):
+            raise ValueError(f"vote={self.vote!r}: expected 'mean' or "
+                             f"'inverse_error'")
+
+    def subspace_k(self) -> int:
+        return max(1, int(round(self.subspace * self.tree.n_features)))
+
+
+def _poisson_cdf(lam: float, tail: float = 1e-7):
+    """Static inverse-CDF table: [P(X<=0), P(X<=1), ...] up to 1-tail."""
+    cdf, p, k, c = [], math.exp(-lam), 0, math.exp(-lam)
+    while c < 1.0 - tail and k < 64:
+        cdf.append(c)
+        k += 1
+        p *= lam / k
+        c += p
+    cdf.append(c)
+    return cdf
+
+
+def _poisson_weights(gen, cdf, shape, dev):
+    """Poisson draw by inverse-CDF table lookup: X = #{k : u >= P(X<=k)}."""
+    u = torch.rand(shape, generator=gen, device=dev)
+    return (u[..., None] >= cdf).sum(-1).to(torch.float32)
+
+
+def _draw_masks(gen, T: int, F: int, k: int, dev):
+    """(T, F) bool: k features per tree, drawn as the first k of a random
+    permutation (argsort of uniforms, one call for all trees)."""
+    perm = torch.argsort(torch.rand((T, F), generator=gen, device=dev), 1)
+    mask = torch.zeros((T, F), dtype=torch.bool, device=dev)
+    return mask.scatter_(1, perm[:, :k], True)
+
+
+def _generator(state_rng, dev):
+    gen = torch.Generator(device=dev)
+    gen.set_state(state_rng)
+    return gen
+
+
+def _fresh_trees(cfg: ForestConfig, T: int, dev):
+    base = ht.init_state(cfg.tree, device=dev)
+    expand = lambda a: a[None].expand((T,) + a.shape).clone()
+    return {k: ({kk: expand(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else expand(v))
+            for k, v in base.items()}
+
+
+def init_forest(cfg: ForestConfig, seed: int = 0, *, device=None,
+                feat_mask=None) -> ForestState:
+    """Fresh forest state; every leaf carries the tree axis first.
+
+    ``trees`` (stacked tree states), ``feat_mask`` (T, F) bool, ``rng``
+    (the generator state that replaces the reference's ``keys``),
+    ``err_win`` Stats (T,), ``err_ewma`` (T,), ``vote_w`` (T,),
+    ``resets`` (T,) i32.  ``feat_mask`` may be injected (C3); otherwise it
+    is drawn from a generator seeded with ``seed``.
+    """
+    dev = dv.resolve(device)
+    T, F = cfg.n_trees, cfg.tree.n_features
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    masks = _draw_masks(gen, T, F, cfg.subspace_k(), dev) \
+        if feat_mask is None else \
+        torch.as_tensor(feat_mask, dtype=torch.bool, device=dev)
+    return {
+        "trees": _fresh_trees(cfg, T, dev),
+        "feat_mask": masks,
+        "rng": gen.get_state(),
+        "err_win": stats.init((T,), dev),
+        "err_ewma": torch.zeros((T,), dtype=torch.float32, device=dev),
+        "vote_w": torch.zeros((T,), dtype=torch.float32, device=dev),
+        "resets": torch.zeros((T,), dtype=torch.int32, device=dev),
+    }
+
+
+def _route_all(cfg: ForestConfig, trees, X):
+    """(T, B) leaf ids: one folded route, trimmed to the realized depth."""
+    return kops.forest_route(trees["feature"], trees["threshold"],
+                             trees["child"], trees["is_leaf"], X,
+                             depth=ht.realized_depth(cfg.tree,
+                                                     trees["depth"]))
+
+
+def _member_predictions(cfg: ForestConfig, trees, X):
+    leaf = _route_all(cfg, trees, X)
+    return torch.gather(trees["ystats"]["mean"], 1, leaf.long())
+
+
+def member_predictions(cfg: ForestConfig, state: ForestState, X, *,
+                       device=None):
+    """(T, B) f32: every member's prediction for every row of X (B, F)."""
+    dev = dv.resolve(device)
+    dv.check_on(state["vote_w"], dev, "state")
+    X = torch.as_tensor(X, dtype=torch.float32, device=dev).contiguous()
+    return _member_predictions(cfg, state["trees"], X)
+
+
+def vote_weights(cfg: ForestConfig, state: ForestState):
+    """(T,) f32 un-normalized member vote weights from the error windows."""
+    T = state["err_ewma"].shape[0]
+    if cfg.vote == "mean":
+        return torch.ones((T,), dtype=torch.float32,
+                          device=state["err_ewma"].device)
+    seen = state["err_win"]["n"] > 0
+    return torch.where(
+        seen, (1.0 / (state["err_ewma"] + 1e-6)) ** cfg.vote_power, 0.0)
+
+
+def vote_combine(yhat, wts):
+    """(T, B) member predictions + (T,) weights -> (B,) vote.  The one
+    definition of the prediction reduce, shared by :func:`predict`, the
+    prequential error in :func:`update` and snapshot serving."""
+    num = (wts[:, None] * yhat).sum(0)
+    den = wts.sum()
+    return num / torch.clamp(den, min=1e-12)
+
+
+def predict(cfg: ForestConfig, state: ForestState, X, *, device=None):
+    """(B,) f32 forest prediction: the vote-weighted mean of members."""
+    return vote_combine(member_predictions(cfg, state, X, device=device),
+                        state["vote_w"])
+
+
+def _fold(a, T, M):
+    return a.reshape((T * M,) + a.shape[2:])
+
+
+def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
+    """All T member updates as one flat pass: route, per-leaf target stats,
+    absorb (tables in place), attempt.  w: (T, B) sample weights."""
+    tcfg = cfg.tree
+    T, M = trees["feature"].shape
+    leaf = _route_all(cfg, trees, X)
+    gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None] * M
+          + leaf).reshape(-1)
+    batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1))
+    batch_leaf = {k: v.reshape(T, M) for k, v in batch_leaf.items()}
+    trees = dict(trees,
+                 ystats=stats.merge(trees["ystats"], batch_leaf),
+                 seen_since_attempt=trees["seen_since_attempt"]
+                 + batch_leaf["n"])
+    flat = lambda a: _fold(a, T, M)
+    kops.forest_update({k: flat(v) for k, v in trees["ao_y"].items()},
+                       flat(trees["ao_sum_x"]), flat(trees["ao_radius"]),
+                       flat(trees["ao_origin"]), gl, X, y, w.reshape(-1))
+    return ht.attempt_trees(tcfg, trees, feat_mask)
+
+
+def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
+           bag_w=None, new_masks=None, device=None):
+    """Learn one batch, test-then-train.
+
+    X: (B, F); y: (B,); w: optional (B,) row weights (multiply every
+    member's bagging draw and weight the prequential errors).  ``bag_w``
+    (T, B) and ``new_masks`` (T, F) inject the bagging weights and the
+    subspace masks a swapped member would get (C3); without them they
+    are drawn from ``state["rng"]``.
+
+    Returns ``(state, aux)`` with ``aux = {"member_mse": (T,),
+    "forest_mse": (), "drift": (T,) bool}``, the prequential (pre-update)
+    errors of this batch.  The QO tables of ``state`` are updated in
+    place: the old state is consumed.
+    """
+    dev = dv.resolve(device)
+    dv.check_on(state["vote_w"], dev, "state")
+    X, y, row_w = ht.as_batch(X, y, w, dev)
+    B = y.shape[0]
+    T, F = cfg.n_trees, cfg.tree.n_features
+    wsum = torch.clamp(row_w.sum(), min=1e-12)
+
+    # --- test: prequential member + forest errors on the raw stream ------
+    yhat = _member_predictions(cfg, state["trees"], X)           # (T, B)
+    member_mse = (row_w[None, :] * (yhat - y[None, :]) ** 2).sum(1) / wsum
+    fpred = vote_combine(yhat, state["vote_w"])
+    forest_mse = (row_w * (fpred - y) ** 2).sum() / wsum
+
+    # --- train: Poisson(lambda) bagging weights, one fused member update --
+    gen = _generator(state["rng"], dev)
+    if bag_w is None:
+        cdf = torch.tensor(_poisson_cdf(cfg.lam), dtype=torch.float32,
+                           device=dev)
+        bag_w = _poisson_weights(gen, cdf, (T, B), dev)
+    else:
+        bag_w = torch.as_tensor(bag_w, dtype=torch.float32, device=dev)
+    if new_masks is None:
+        new_masks = _draw_masks(gen, T, F, cfg.subspace_k(), dev)
+    else:
+        new_masks = torch.as_tensor(new_masks, dtype=torch.bool, device=dev)
+    trees = _learn(cfg, state["trees"], state["feat_mask"], X, y,
+                   bag_w * row_w[None, :])
+
+    # --- drift: ADWIN-style short-vs-long window test per member ---------
+    # compared BEFORE this batch folds into the long window; both windows
+    # advance by the batch's real-row fraction
+    live = row_w.sum() > 0
+    frac = torch.where(live, torch.clamp(wsum / max(float(B), 1.0),
+                                         max=1.0), 0.0)
+    alpha = cfg.drift_alpha * frac
+    first = (state["err_win"]["n"] < 0.5) & live
+    ewma = torch.where(first, member_mse,
+                       (1.0 - alpha) * state["err_ewma"] + alpha * member_mse)
+    ref = state["err_win"]
+    sd = torch.sqrt(torch.clamp(stats.variance(ref), min=1e-12))
+    signal = (ref["n"] >= cfg.drift_min_batches) \
+        & (ewma > ref["mean"] + cfg.drift_kappa * sd)
+    # swap at most the WORST signalling member per batch
+    worst = torch.argmax(torch.where(signal, ewma, float("-inf")))
+    drift = signal & (torch.arange(T, device=dev) == worst)
+    decay_f32 = torch.tensor(cfg.drift_decay, dtype=torch.float32, device=dev)
+    decay = torch.where(frac >= 1.0, decay_f32, decay_f32 ** frac)
+    decayed = {"n": decay * ref["n"], "mean": ref["mean"],
+               "m2": decay * ref["m2"]}
+    observed = stats.observe(decayed, member_mse, frac)
+    # a signalling member's reference freezes (no decay, no observe)
+    win = {k: torch.where(signal, ref[k], observed[k]) for k in observed}
+
+    # --- swap: reset the drifting member (fresh tree, subspace, window) --
+    feat_mask = state["feat_mask"]
+    if bool(drift.any()):    # host branch: most batches swap nobody
+        fresh = _fresh_trees(cfg, T, dev)
+
+        def swap(a, f):
+            return torch.where(drift.reshape((T,) + (1,) * (a.dim() - 1)),
+                               f, a)
+        trees = {k: ({kk: swap(vv, fresh[k][kk]) for kk, vv in v.items()}
+                     if isinstance(v, dict) else swap(v, fresh[k]))
+                 for k, v in trees.items()}
+        feat_mask = torch.where(drift[:, None], new_masks, feat_mask)
+    state = {
+        "trees": trees,
+        "feat_mask": feat_mask,
+        "rng": gen.get_state(),
+        "err_win": {k: torch.where(drift, 0.0, v) for k, v in win.items()},
+        "err_ewma": torch.where(drift, 0.0, ewma),
+        "resets": state["resets"] + drift.to(torch.int32),
+    }
+    # vote weights refresh ONCE per learned batch
+    state["vote_w"] = vote_weights(cfg, state)
+    return state, {"member_mse": member_mse, "forest_mse": forest_mse,
+                   "drift": drift}
+
+
+def update_stream(cfg: ForestConfig, state: ForestState, X, y,
+                  batch_size: int = 256, *, device=None):
+    """Learn a stream batch by batch (a Python loop in place of the
+    reference's ``lax.scan``); the ragged tail rides at weight 0.
+    Returns ``(state, trace)`` with the (n_batches,) ``forest_mse`` and
+    (n_batches, T) ``member_mse`` traces."""
+    fm, mm = [], []
+    for Xb, yb, wb in zip(*ht.pad_stream(X, y, None, batch_size)):
+        state, aux = update(cfg, state, Xb, yb, wb, device=device)
+        fm.append(aux["forest_mse"])
+        mm.append(aux["member_mse"])
+    return state, {"forest_mse": torch.stack(fm),
+                   "member_mse": torch.stack(mm)}
