@@ -1,28 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
-Configuration ``forest_t16_m1023_f16_c64``: an online-bagged forest of
-T=16 QO Hoeffding trees, M=1023 nodes, max depth 12, F=16 features, C=64
-bins, learned batches of B=4096 rows.  Phases, each fatal on failure:
+Three paths at full width, each fatal on failure:
+
+* ``forest_t16_m1023_f16_c64``: an online-bagged forest of T=16 QO
+  Hoeffding trees, M=1023 nodes, max depth 12, F=16 features, C=64 bins,
+  learned batches of B=4096 rows;
+* ``forest_t16_m1023_f16_k16_sketch``: the same forest with
+  ``observer_backend="sketch"``, K=16 centroids per (leaf, feature), on
+  the same stream fed as exp(X) (heavy-tailed; monotone, so the planted
+  splits survive);
+* ``qo_c1024_n1e6``: the single-table QO observer (paper Algorithms 1 and
+  2) on the paper's §5.1 streams of 1,000,000 rows, C=1024 bins.
+
+Phases:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+2. build the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once) into ``build/kernels/``;
-3. per kernel, at the shapes of a live forest after 8 learned batches:
-   kernel vs its plain PyTorch version on the card (route ids exact,
-   absorb n exact, absorb mean/m2/sum_x and query merit/thr within 1e-4
-   relative with an absolute floor of 1e-4, identical -inf pattern), and
-   both timed (median of CUDA-event-timed repeats);
-4. end to end: 32 batches through ``forest.update`` with the launch counts
-   set to 0 just before and read just after; every kernel must have run;
+3. per kernel, at the shapes its path gives it (the forests after 8
+   learned batches, one table absorbing a 1e6-row stream): kernel vs its
+   plain PyTorch version on the card (ids and counts exact; other
+   statistics, merits and thresholds within 1e-4 relative with an
+   absolute floor of 1e-4 -- for the single table, relative to each bin's
+   sum of |terms| and to the table's variance, since sums of 1e6 mixed-sign
+   terms cancel -- identical -inf patterns, a threshold differing only at
+   a near-tie), and both timed (median of CUDA-event-timed repeats);
+4. QO forest end to end: 32 batches through ``forest.update`` with the
+   launch counts set to 0 just before and read just after; every kernel
+   of the path must have run;
 5. determinism: the same seed again gives a bitwise-equal state;
 6. serving: ``freeze`` + ``predict_snapshot`` of an 8192-row request equals
    the live ``forest.predict`` bit for bit;
 7. where the time goes: 8 mid-growth steps (after 8 warm-up batches)
    timed plain and under torch.profiler, printing the device-busy share
-   and the top device kernels and host operations.
+   and the top device kernels and host operations (for both forests);
+8. sketch forest end to end: 32 batches with counts reset, falling MSE, a
+   bitwise rerun, a snapshot serving equal to live ``predict``;
+9. single-table QO: the 18 streams of the §5.1 grid (3 distributions x 3
+   parameterizations x 2 targets, noise on 10 %, n = 1e6) each absorbed
+   in one ``qo.update`` into a C=1024 table at radius sigma/2
+   (``auto_radius``, k=2) and queried with ``qo.best_split``, with counts
+   reset; each held against the plain versions and its merit against the
+   exhaustive best split; then the quickstart stream at r=0.01, which
+   must find the planted x=0.3 within 0.1.
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -42,22 +65,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 T, M, F, C, DEPTH, B = 16, 1023, 16, 64, 12, 4096
+KS = 16                        # sketch centroids per (leaf, feature)
+QO_BINS, QO_ROWS = 1024, 1_000_000
 WARM_BATCHES, STREAM_BATCHES, SERVE_ROWS = 8, 32, 8192
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 
 
-def _close(a, b, what):
-    """|a-b| <= TOL*|b| + TOL elementwise, with identical -inf positions."""
+def _close(a, b, what, scale=0.0):
+    """|a-b| <= TOL*(|b| + scale) + TOL elementwise, with identical -inf
+    positions (``scale``: the magnitude a sum's rounding follows)."""
     import torch
     ninf_a, ninf_b = torch.isneginf(a), torch.isneginf(b)
     if not torch.equal(ninf_a, ninf_b):
         raise AssertionError(f"{what}: -inf patterns differ "
                              f"({int((ninf_a != ninf_b).sum())} entries)")
     fa, fb = a[~ninf_a].double(), b[~ninf_b].double()
+    if torch.is_tensor(scale):
+        scale = scale[~ninf_b].double()
     err = (fa - fb).abs()
-    bad = err > TOL * fb.abs() + TOL
+    bad = err > TOL * (fb.abs() + scale) + TOL
     if bool(bad.any()):
         raise AssertionError(f"{what}: {int(bad.sum())} entries beyond "
                              f"tolerance, max abs err {float(err.max())}")
@@ -87,7 +115,7 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _profile(cfg, batches, seed, dev):
+def _profile(cfg, batches, seed, dev, tag="[7]"):
     """Phase 7: where the time of a mid-growth learned batch goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -113,29 +141,367 @@ def _profile(cfg, batches, seed, dev):
             state, _ = fr.update(cfg, state, Xb, yb, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _report(prof, len(window), wall, plain_wall, "mid-growth steps", tag)
+
+
+def _report(prof, n, wall, plain_wall, what, tag):
+    """Print a profiled window: wall times, device-busy share, the port's
+    kernels, the top device kernels and the top host operations."""
+    import torch
     ev = prof.key_averages()
     # device-side events only (kernels, copies): an ATen op's own
     # self_device_time_total repeats the time of the kernels it launched
     kernels = [e for e in ev
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3  # ms
-    n = len(window)
-    print(f"[7] {n} mid-growth steps: {plain_wall / n * 1e3:.3f} ms/step "
-          f"unprofiled; profiled {wall / n * 1e3:.3f} ms/step with device "
-          f"busy {busy / n:.3f} ms/step ({busy / (wall * 1e3):.1%} of wall)")
+    print(f"{tag} {n} {what}: {plain_wall / n * 1e3:.3f} ms each "
+          f"unprofiled; profiled {wall / n * 1e3:.3f} ms each with device "
+          f"busy {busy / n:.3f} ms ({busy / (wall * 1e3):.1%} of wall)")
     for e in kernels:
-        if e.key.startswith("qo_"):
-            print(f"[7] device time of {e.key.split('(')[0]}: "
+        if e.key.startswith(("qo_", "sketch_")):
+            print(f"{tag} device time of {e.key.split('(')[0]}: "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms per "
-                  f"launch, {e.count / n:.1f} launches per step")
-    print("[7] top device kernels (ms per step, calls per step):")
+                  f"launch, {e.count / n:.1f} launches each")
+    print(f"{tag} top device kernels (ms each, calls each):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f}  "
               f"{e.count / n:6.1f}  {e.key[:100]}")
-    print("[7] top operations by host time (ms per step, calls per step):")
+    print(f"{tag} top operations by host time (ms each, calls each):")
     for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]:
         print(f"    {e.self_cpu_time_total / 1e3 / n:8.4f}  "
               f"{e.count / n:6.1f}  {e.key[:100]}", flush=True)
+
+
+def _sketch_compact_row(scfg, sbatches, seed, dev):
+    """Phase 3: the compaction kernel on the tables of a sketch forest
+    after 8 learned batches, absorbing the next batch."""
+    import torch
+    from repro_torch.core import forest as fr
+    from repro_torch.core import hoeffding as ht
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sketch_compact
+    state = fr.init_forest(scfg, seed, device=dev)
+    for Xb, yb in sbatches[:WARM_BATCHES]:
+        state, _ = fr.update(scfg, state, Xb, yb, device=dev)
+    trees = state["trees"]
+    Xk, yk = sbatches[WARM_BATCHES]
+    leaf = kops.forest_route(trees["feature"], trees["threshold"],
+                             trees["child"], trees["is_leaf"], Xk,
+                             depth=ht.realized_depth(scfg.tree,
+                                                     trees["depth"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    w = torch.randint(0, 7, (T * B,), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.float32)
+    gl = (torch.arange(T, device=dev, dtype=torch.int32)[:, None] * M
+          + leaf).reshape(-1)
+    fold = lambda a: a.reshape((T * M,) + a.shape[2:])
+    old = [fold(trees["ao_y"][k]) for k in ("n", "mean", "m2")] \
+        + [fold(trees["ao_sum_x"])]
+    new = sk.from_batch_planes(gl, Xk, yk, w, T * M, KS)
+    cat = [torch.cat([a, b], -1) for a, b in zip(old, new)]
+    planes = [a.contiguous() for a in sk.sort_planes(*cat)]
+    bucket = sk._bucket_ids(planes[0], KS)
+    out_k = sketch_compact.bucket_reduce_kernel(*planes, bucket, KS)
+    out_p = sketch_compact.bucket_reduce_plain(*planes, bucket, KS)
+    if not torch.equal(out_k[0], out_p[0]):
+        raise AssertionError("sketch_compact: n differs from the plain "
+                             "version")
+    err = max(_close(a, b, f"sketch_compact {name}") for a, b, name in
+              zip(out_k[1:], out_p[1:], ("mean", "m2", "sum_x")))
+    R, J = T * M * F, 2 * KS
+    bound, by = _bound(5 * R * J * 4 + 4 * R * KS * 4, R * J * 12)
+    print(f"[3] sketch_compact: R={R} rows, J={J} -> K={KS}, n exact, "
+          f"max abs err {err:.3g}", flush=True)
+    return dict(
+        name="sketch_compact", route="cuda",
+        source="src/repro_torch/csrc/sketch_compact.cu",
+        replaces="src/repro/kernels/sketch_compact.py:110",
+        max_abs_err=err,
+        ms=_time_ms(lambda: sketch_compact.bucket_reduce_kernel(
+            *planes, bucket, KS)),
+        plain_ms=_time_ms(lambda: sketch_compact.bucket_reduce_plain(
+            *planes, bucket, KS)),
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _qo_planes(table):
+    return (table["y"]["n"], table["y"]["mean"], table["y"]["m2"],
+            table["sum_x"])
+
+
+def _check_qo_update(out_k, out_p, table, x, y, w, what):
+    """Kernel vs plain absorb of one table, the plain version summing in
+    float64 (its float32 sums of ~10^5 rows a bin go through atomics and
+    stray by more than the kernel's tree sums): n exact; mean and sum_x
+    within TOL of each bin's sum of |terms| (1e6 mixed-sign terms cancel),
+    m2 relative.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.qo_update_leaves import bin_ids_plain
+    if not torch.equal(out_k[0], out_p[0]):
+        raise AssertionError(f"{what}: n differs from the plain version")
+    ids = bin_ids_plain(table["radius"], table["origin"], x,
+                        QO_BINS).long()
+    n0, mean0, _, sx0 = _qo_planes(table)
+    absum = lambda v: torch.zeros(QO_BINS, dtype=torch.float32,
+                                  device=x.device).index_add_(0, ids, v)
+    finite = torch.isfinite(x)
+    y_scale = (n0 * mean0.abs() + absum((w * y).abs())) \
+        / torch.clamp(out_k[0], min=1.0)
+    sx_scale = sx0.abs() + absum(torch.where(finite, (w * x).abs(), 0.0))
+    return max(_close(out_k[1], out_p[1], f"{what} mean", y_scale),
+               _close(out_k[2], out_p[2], f"{what} m2"),
+               _close(out_k[3], out_p[3], f"{what} sum_x", sx_scale))
+
+
+def _check_qo_query(planes, k, p, what):
+    """Kernel vs plain query of one table: scores within TOL of the
+    table's variance, thresholds close, the same validity, and a best
+    threshold that differs only at a near-tie.  Returns the max abs
+    error."""
+    import torch
+    from repro_torch.core import stats
+    (ks, kc, kr), (ps, pc, pr) = k, p
+    s2 = float(stats.variance(stats.tree_reduce_merge(
+        {"n": planes[0], "mean": planes[1], "m2": planes[2]}, 0)))
+    err = max(_close(ks, ps, f"{what} score", s2),
+              _close(kc, pc, f"{what} threshold row"),
+              _close(kr[1:2], pr[1:2], f"{what} merit", s2))
+    if float(kr[2]) != float(pr[2]):
+        raise AssertionError(f"{what}: validity differs")
+    if abs(float(kr[0]) - float(pr[0])) > TOL * abs(float(pr[0])) + TOL:
+        hit = (pc == kr[0]).nonzero().reshape(-1)
+        if hit.numel() == 0 or abs(float(ps[hit[0]]) - float(pr[1])) \
+                > TOL * (abs(float(pr[1])) + s2) + TOL:
+            raise AssertionError(f"{what}: the best threshold is not a "
+                                 f"near-tie of the plain version's")
+    return err
+
+
+def _paper_stream(cfg, dev):
+    import torch
+    from repro_torch.data import synth
+    x, y = synth.generate(cfg)
+    return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+
+
+def _qo_rows(seed, dev):
+    """Phase 3: the single-table absorb and query kernels on a table that
+    already holds one 1e6-row stream, absorbing a second one."""
+    import torch
+    from repro_torch.core import qo
+    from repro_torch.data import synth
+    from repro_torch.kernels import qo_query, qo_update
+    xw, yw = _paper_stream(synth.SynthConfig(noise_frac=0.1, n=QO_ROWS,
+                                             seed=seed + 100), dev)
+    r, o = qo.auto_radius(xw, k=2.0)
+    table = qo.update(qo.init(QO_BINS, r, o, device=dev), xw, yw, device=dev)
+    x, y = _paper_stream(synth.SynthConfig(noise_frac=0.1, n=QO_ROWS,
+                                           seed=seed), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    w = torch.randint(0, 5, (QO_ROWS,), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.float32)
+    args = (*_qo_planes(table), table["radius"], table["origin"], x, y, w)
+    out_k = qo_update.update_kernel(*args)
+    out_p = qo_update.update_plain(*(a.double() for a in args))
+    err = _check_qo_update(out_k, out_p, table, x, y, w, "qo_update")
+    bound, by = _bound(QO_ROWS * 12 + QO_BINS * 16 * 2 + 8, QO_ROWS * 20)
+    rows = [dict(
+        name="qo_update", route="cuda", source="src/repro_torch/csrc/qo_update.cu",
+        replaces="src/repro/kernels/qo_update.py:108", max_abs_err=err,
+        ms=_time_ms(lambda: qo_update.update_kernel(*args)),
+        plain_ms=_time_ms(lambda: qo_update.update_plain(*args)),
+        bound_ms=bound, bound_by=by, library_ms=None)]
+    print(f"[3] qo_update: C={QO_BINS}, N={QO_ROWS}, n exact, max abs err "
+          f"{err:.3g}", flush=True)
+    planes = [a.contiguous() for a in out_k]
+    k, p = qo_query.best_kernel(*planes), qo_query.best_plain(*planes)
+    err = _check_qo_query(planes, k, p, "qo_query")
+    bound, by = _bound(QO_BINS * 16 + QO_BINS * 8 + 12, QO_BINS * 60)
+    rows.append(dict(
+        name="qo_query", route="cuda", source="src/repro_torch/csrc/qo_query.cu",
+        replaces="src/repro/kernels/qo_query.py:121", max_abs_err=err,
+        ms=_time_ms(lambda: qo_query.best_kernel(*planes)),
+        plain_ms=_time_ms(lambda: qo_query.best_plain(*planes)),
+        bound_ms=bound, bound_by=by, library_ms=None))
+    print(f"[3] qo_query: C={QO_BINS}, {int((planes[0] > 0).sum())} occupied "
+          f"bins, threshold {float(k[2][0]):.5f}, max abs err {err:.3g}",
+          flush=True)
+    return rows
+
+
+def _exact_merit(x, y):
+    """The exhaustive best split's VR (float64 on the card)."""
+    import torch
+    o = torch.argsort(x)
+    xs, ys = x[o].double(), y[o].double()
+    n = ys.shape[0]
+    cs, cq = torch.cumsum(ys, 0), torch.cumsum(ys * ys, 0)
+    nl = torch.arange(1, n, dtype=torch.float64, device=x.device)
+    nr = n - nl
+    sl, ql = cs[:-1], cq[:-1]
+    sr, qr = cs[-1] - sl, cq[-1] - ql
+    vl = torch.where(nl > 1, (ql - sl * sl / nl) / torch.clamp(nl - 1, min=1),
+                     0.0)
+    vr = torch.where(nr > 1, (qr - sr * sr / nr) / torch.clamp(nr - 1, min=1),
+                     0.0)
+    m = torch.var(ys) - nl / n * vl - nr / n * vr
+    m = torch.where(xs[:-1] < xs[1:], m, float("-inf"))
+    return float(m.max())
+
+
+def _sketch_forest(scfg, sbatches, seed, dev):
+    """Phase 8: the sketch forest end to end, rerun and served."""
+    import numpy as np
+    import torch
+    from repro_torch.core import forest as fr
+    from repro_torch.core import serve as sv
+    from repro_torch.kernels import _build
+
+    def stream():
+        st = fr.init_forest(scfg, seed, device=dev)
+        mse = []
+        for Xb, yb in sbatches:
+            st, aux = fr.update(scfg, st, Xb, yb, device=dev)
+            mse.append(float(aux["forest_mse"]))
+        return st, mse
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, mse = stream()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print("[8] sketch forest_mse per batch: "
+          + " ".join(f"{m:.4f}" for m in mse))
+    print(f"[8] nodes per tree: {state['trees']['n_nodes'].tolist()}")
+    print(f"[8] {STREAM_BATCHES} batches of {B} rows in {secs:.3f} s: "
+          f"{STREAM_BATCHES * B / secs:.0f} rows/s")
+    print(f"[8] kernels {json.dumps(launches)}", flush=True)
+    for name in ("qo_route", "sketch_compact", "qo_query_batched"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the sketch path")
+    if launches["qo_update_leaves"] != 0:
+        raise AssertionError("the QO absorb ran under the sketch observer")
+    if not (np.isfinite(mse).all() and mse[-1] < mse[0]):
+        raise AssertionError(f"sketch forest_mse did not fall: {mse}")
+    again, mse2 = stream()
+    for k in state["trees"]:
+        a, b = state["trees"][k], again["trees"][k]
+        pairs = zip(a.values(), b.values()) if isinstance(a, dict) \
+            else [(a, b)]
+        if not all(torch.equal(u, v) for u, v in pairs) or mse != mse2:
+            raise AssertionError(f"sketch rerun differs at trees/{k}")
+    print("[8] rerun from the same seed: bitwise-equal state", flush=True)
+    Xs = sbatches[-1][0]
+    snap = sv.freeze(state, device=dev)
+    if not torch.equal(sv.predict_snapshot(snap, Xs, device=dev),
+                       fr.predict(scfg, state, Xs, device=dev)):
+        raise AssertionError("sketch snapshot differs from live predict")
+    print(f"[8] snapshot depth {snap.depth}: equals live predict bitwise",
+          flush=True)
+    return launches
+
+
+def _paper_grid(seed, dev):
+    """Phase 9: the single-table QO over the §5.1 grid and the quickstart
+    stream."""
+    import numpy as np
+    import torch
+    from repro_torch.core import qo
+    from repro_torch.data import synth
+    from repro_torch.kernels import _build, qo_query, qo_update
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    streams = [synth.SynthConfig(dist, v, task, 0.1, QO_ROWS, seed)
+               for dist in synth.DISTRIBUTIONS for v in range(3)
+               for task in synth.TASKS]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    checked = []
+    for cfg in streams:
+        x, y = _paper_stream(cfg, dev)
+        r, o = qo.auto_radius(x, k=2.0)
+        empty = qo.init(QO_BINS, r, o, device=dev)
+        table, upd_ms = timed(lambda: qo.update(empty, x, y, device=dev))
+        split, q_ms = timed(lambda: qo.best_split(table, device=dev))
+        checked.append((cfg, empty, table, x, y, split, upd_ms, q_ms))
+    rng = np.random.default_rng(0)
+    xq = rng.normal(0, 1, 20_000).astype(np.float32)
+    yq = np.where(xq <= 0.3, 1.0, 6.0).astype(np.float32) + \
+        0.1 * rng.normal(0, 1, 20_000).astype(np.float32)
+    quick = qo.update(qo.init(QO_BINS, 0.01, float(np.mean(xq)), device=dev),
+                      xq, yq, device=dev)
+    qsplit = qo.best_split(quick, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[9] kernels {json.dumps(launches)}", flush=True)
+    for name in ("qo_update", "qo_query"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the QO path")
+
+    # against the plain versions and the exhaustive best split
+    ones = None
+    for cfg, empty, table, x, y, split, upd_ms, q_ms in checked:
+        what = f"{cfg.dist}/{cfg.variant}/{cfg.task}"
+        ones = torch.ones_like(x) if ones is None else ones
+        plain = qo_update.update_plain(*(a.double() for a in (
+            *_qo_planes(empty), empty["radius"], empty["origin"], x, y,
+            ones)))
+        _check_qo_update(_qo_planes(table), plain, empty, x, y, ones, what)
+        planes = [a.contiguous() for a in _qo_planes(table)]
+        _check_qo_query(planes, qo_query.best_kernel(*planes),
+                        qo_query.best_plain(*planes), what)
+        exact = _exact_merit(x, y)
+        ratio = float(split.merit) / exact
+        print(f"[9] {what:18s} slots {int(qo.n_slots(table)):4d} "
+              f"update {upd_ms:.3f} ms query {q_ms:.3f} ms  threshold "
+              f"{float(split.threshold):+.5f}  merit/exhaustive "
+              f"{ratio:.4f}", flush=True)
+        if not (bool(split.valid) and 0.9 <= ratio <= 1.0 + 1e-3):
+            raise AssertionError(f"{what}: QO merit {float(split.merit)} vs "
+                                 f"exhaustive {exact}")
+    print(f"[9] quickstart r=0.01: split {float(qsplit.threshold):+.4f} "
+          f"(planted 0.3), {int(qo.n_slots(quick))} slots", flush=True)
+    if abs(float(qsplit.threshold) - 0.3) >= 0.1:
+        raise AssertionError("quickstart: the planted split was not found")
+
+    # where the time of one stream's update + query goes
+    from torch.profiler import ProfilerActivity, profile
+    _, empty, _, x, y, _, _, _ = checked[0]
+
+    def absorb_and_query():
+        qo.best_split(qo.update(empty, x, y, device=dev), device=dev)
+
+    for _ in range(3):
+        absorb_and_query()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        absorb_and_query()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            absorb_and_query()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(prof, 8, wall, plain_wall, "update + best_split of a 1e6-row "
+            "stream", "[9]")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -187,6 +553,12 @@ def main(argv=None) -> int:
     batches = [(torch.as_tensor(X_all[i:i + B], device=dev),
                 torch.as_tensor(y_all[i:i + B], device=dev))
                for i in range(0, n_rows, B)]
+    scfg = fr.ForestConfig(
+        tree=ht.HTRConfig(n_features=F, max_nodes=M, n_bins=C,
+                          grace_period=200, max_depth=DEPTH,
+                          observer_backend="sketch", sketch_k=KS),
+        n_trees=T, lam=6.0, subspace=0.7)
+    sbatches = [(torch.exp(Xb), yb) for Xb, yb in batches]
 
     # ---- 3. per kernel at the full-width shapes -------------------------
     state = fr.init_forest(cfg, args.seed, device=dev)
@@ -306,6 +678,8 @@ def main(argv=None) -> int:
           f"{len(diff)} near-tie thresholds, max abs err {err:.3g}",
           flush=True)
     del ty_k, tsx_k, ty_p, tsx_p, scratch_k, scratch_p, state, trees, after
+    rows.append(_sketch_compact_row(scfg, sbatches, args.seed, dev))
+    rows.extend(_qo_rows(args.seed, dev))
 
     # ---- 4. end to end ----------------------------------------------------
     def stream():
@@ -329,8 +703,8 @@ def main(argv=None) -> int:
     print(f"[4] {STREAM_BATCHES} batches of {B} rows in {secs:.3f} s: "
           f"{STREAM_BATCHES * B / secs:.0f} rows/s")
     print(f"[4] kernels {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("qo_route", "qo_update_leaves", "qo_query_batched"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     if not (np.isfinite(mse).all() and mse[-1] < mse[0]):
         raise AssertionError(f"prequential forest_mse did not fall: {mse}")
@@ -370,8 +744,19 @@ def main(argv=None) -> int:
 
     _profile(cfg, batches, args.seed, dev)
 
+    # ---- 8. the sketch forest ---------------------------------------------
+    sketch_launches = _sketch_forest(scfg, sbatches, args.seed, dev)
+    _profile(scfg, sbatches, args.seed, dev, tag="[8]")
+
+    # ---- 9. the single-table QO observer ----------------------------------
+    qo_launches = _paper_grid(args.seed, dev)
+
+    # launches from the phase whose path runs each kernel
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = {"sketch_compact": sketch_launches,
+                           "qo_update": qo_launches,
+                           "qo_query": qo_launches}.get(
+                               row["name"], launches)[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

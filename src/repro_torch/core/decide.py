@@ -69,7 +69,10 @@ def _anytime_want(cfg, state, merit, attempt):
     eta = torch.clamp(torch.where(finite, merit, 0.0) / sigma2[..., None],
                       0.0, 1.0)
     safe_n = torch.clamp(n_leaf, min=1.0)
-    log_fc = _f32_log(float(max(cfg.n_features, 2) * cfg.n_bins), dev)
+    # C is the observer's slot count: a K-slot sketch offers fewer
+    # candidate boundaries than n_bins dense bins
+    log_fc = _f32_log(float(max(cfg.n_features, 2) * cfg.observer_bins()),
+                      dev)
     mu0 = E_MARGIN + E_SEL * log_fc / safe_n
     dn = torch.clamp(n_leaf - state["dec_n_last"], min=0.0)
     inc = dn[..., None] * (E_LAMBDA * (eta - mu0[..., None])

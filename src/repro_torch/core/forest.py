@@ -3,7 +3,8 @@
 
 T member trees are one program over a leading tree axis: every routing
 pass is one ``forest_route`` over the folded T*M node axis, the absorb is
-one ``forest_update`` over the folded T*M table axis, and the split query
+one ``forest_update`` (or, under the sketch observer, one
+``sketch_update``) over the folded T*M table axis, and the split query
 one compacted ``forest_best_splits`` over the attempting leaves of the
 whole ensemble.  :func:`update` is the prequential step: predict the
 batch with the inverse-error vote, learn it with Poisson(lambda) bagging
@@ -193,7 +194,8 @@ def _fold(a, T, M):
 
 def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
     """All T member updates as one flat pass: route, per-leaf target stats,
-    absorb (tables in place), attempt.  w: (T, B) sample weights."""
+    absorb (QO tables in place; sketch planes rebound), attempt.  w: (T, B)
+    sample weights."""
     tcfg = cfg.tree
     T, M = trees["feature"].shape
     leaf = _route_all(cfg, trees, X)
@@ -206,9 +208,19 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
                  seen_since_attempt=trees["seen_since_attempt"]
                  + batch_leaf["n"])
     flat = lambda a: _fold(a, T, M)
-    kops.forest_update({k: flat(v) for k, v in trees["ao_y"].items()},
-                       flat(trees["ao_sum_x"]), flat(trees["ao_radius"]),
-                       flat(trees["ao_origin"]), gl, X, y, w.reshape(-1))
+    ao_y = {k: flat(v) for k, v in trees["ao_y"].items()}
+    if tcfg.observer_backend == "sketch":
+        # the sketch needs no quantization grid: the folded leaf ids alone
+        # segment the batch; the absorb returns new planes
+        ao_y, ao_sum_x = kops.sketch_update(ao_y, flat(trees["ao_sum_x"]),
+                                            gl, X, y, w.reshape(-1))
+        unflat = lambda a: a.reshape((T, M) + a.shape[1:])
+        trees = dict(trees, ao_y={k: unflat(v) for k, v in ao_y.items()},
+                     ao_sum_x=unflat(ao_sum_x))
+    else:
+        kops.forest_update(ao_y, flat(trees["ao_sum_x"]),
+                           flat(trees["ao_radius"]), flat(trees["ao_origin"]),
+                           gl, X, y, w.reshape(-1))
     return ht.attempt_trees(tcfg, trees, feat_mask)
 
 

@@ -6,7 +6,10 @@ batch runs three stages:
 
 * **route**   -- leaf id per row (:func:`repro_torch.kernels.ops.route`);
 * **absorb**  -- every (leaf, feature) QO table folds the batch in, in
-  place (:func:`repro_torch.kernels.ops.forest_update`);
+  place (:func:`repro_torch.kernels.ops.forest_update`), or, under
+  ``observer_backend="sketch"``, every K-centroid sketch is re-compacted
+  with the batch into new planes
+  (:func:`repro_torch.kernels.ops.sketch_update`);
 * **attempt** -- the K attempting leaves are queried
   (:func:`repro_torch.kernels.ops.forest_best_splits`), decided
   (:mod:`repro_torch.core.decide`) and split.
@@ -23,7 +26,8 @@ depth that trims the routing sweep, ``attempt.any()`` (the reference's
 (``bincount`` and ``segment_reduce`` in the index bookkeeping add more).
 
 QO tables (``ao_y``, ``ao_sum_x``) are updated IN PLACE: ``update``
-consumes the state it is given.
+consumes the state it is given (under the sketch the absorb rebinds new
+planes, but the attempt stage still zeroes the new children's in place).
 """
 from __future__ import annotations
 
@@ -59,9 +63,30 @@ class HTRConfig:
     attempt_schedule: str = "grace"   # grace | eager
     decision_backend: str = "hoeffding"   # hoeffding | anytime
     alpha: float = 0.05           # anytime-valid false-split level
-    observer_backend: str = "qo"  # only "qo" in this port so far
+    # attribute-observer layout: "qo" keeps the dense (M, F, C) bin
+    # planes (C = n_bins); "sketch" keeps K = sketch_k rank-bucket
+    # centroids per (leaf, feature) in the same four planes
+    observer_backend: str = "qo"  # qo | sketch
+    sketch_k: int = 16            # sketch capacity K (slots per table)
+
+    def observer_bins(self) -> int:
+        """Slot count of the observer's last table axis: ``n_bins`` under
+        the dense layout, ``sketch_k`` centroids under the sketch."""
+        return self.n_bins if self.observer_backend == "qo" else self.sketch_k
 
     def __post_init__(self):
+        if self.observer_backend not in ("qo", "sketch"):
+            raise ValueError(
+                f"observer_backend={self.observer_backend!r}: expected "
+                f"'qo' (dense bins) or 'sketch' (rank-bucket centroids)")
+        if self.observer_backend == "sketch" and \
+                self.split_backend == "oracle":
+            raise ValueError(
+                "observer_backend='sketch' has no oracle engine: the seed "
+                "path quantizes into dense bins")
+        if self.sketch_k < 2:
+            raise ValueError(f"sketch_k={self.sketch_k}: need >= 2 slots "
+                             f"for a split boundary to exist")
         if self.split_backend == "oracle":
             raise NotImplementedError(
                 "split_backend='oracle' (the seed engine) is not ported yet: "
@@ -70,12 +95,6 @@ class HTRConfig:
             raise ValueError(
                 f"split_backend={self.split_backend!r}: the port takes only "
                 f"'auto' (the tensors' device selects kernel or plain)")
-        if self.observer_backend == "sketch":
-            raise NotImplementedError(
-                "observer_backend='sketch' is not ported yet: ROADMAP A8")
-        if self.observer_backend != "qo":
-            raise ValueError(
-                f"observer_backend={self.observer_backend!r}: expected 'qo'")
         if self.attempt_schedule not in ("grace", "eager"):
             raise ValueError(
                 f"attempt_schedule={self.attempt_schedule!r}: expected "
@@ -96,10 +115,11 @@ def init_state(cfg: HTRConfig, *, device=None) -> TreeState:
     ``depth`` (M,) i32, ``ystats`` Stats (M,), ``ao_sum_x`` (M, F, C),
     ``ao_y`` Stats (M, F, C), ``ao_radius`` / ``ao_origin`` (M, F),
     ``seen_since_attempt`` (M,), ``dec_logE`` (M, F), ``dec_n_last`` (M,),
-    ``n_nodes`` () i32.
+    ``n_nodes`` () i32; C = ``cfg.observer_bins()`` (``ao_radius`` and
+    ``ao_origin`` ride inert under the sketch).
     """
     dev = dv.resolve(device)
-    M, F, C = cfg.max_nodes, cfg.n_features, cfg.n_bins
+    M, F, C = cfg.max_nodes, cfg.n_features, cfg.observer_bins()
     f32 = dict(dtype=torch.float32, device=dev)
     is_leaf = torch.zeros((M,), dtype=torch.bool, device=dev)
     is_leaf[0] = True
@@ -284,9 +304,13 @@ def attempt_trees(cfg: HTRConfig, trees, feat_mask=None):
     if not bool(attempt.any()):   # host branch: the reference's lax.cond
         return trees
     fold = lambda a: a.reshape((T * M,) + a.shape[2:])
-    merit, thr = kops.forest_best_splits(
-        {k: fold(v) for k, v in trees["ao_y"].items()},
-        fold(trees["ao_sum_x"]), attempt.reshape(-1))
+    ao_y = {k: fold(v) for k, v in trees["ao_y"].items()}
+    ao_sum_x = fold(trees["ao_sum_x"])
+    if cfg.observer_backend == "sketch":
+        # sorted centroids ARE a sorted bin table: the QO query, the
+        # decision and the writes ride unchanged over the K-slot planes
+        ao_y, ao_sum_x = kops.sketch_to_bins(ao_y, ao_sum_x)
+    merit, thr = kops.forest_best_splits(ao_y, ao_sum_x, attempt.reshape(-1))
     return _apply_splits(cfg, trees, merit.reshape(T, M, F),
                          thr.reshape(T, M, F), attempt, feat_mask)
 
@@ -317,6 +341,10 @@ def update_local(cfg: HTRConfig, state: TreeState, X, y, w=None, *,
                  ystats=stats.merge(state["ystats"], batch_leaf),
                  seen_since_attempt=state["seen_since_attempt"]
                  + batch_leaf["n"])
+    if cfg.observer_backend == "sketch":
+        ao_y, ao_sum_x = kops.sketch_update(state["ao_y"], state["ao_sum_x"],
+                                            leaf, X, y, w)
+        return dict(state, ao_y=ao_y, ao_sum_x=ao_sum_x)
     kops.forest_update(state["ao_y"], state["ao_sum_x"], state["ao_radius"],
                        state["ao_origin"], leaf, X, y, w)
     return state

@@ -14,7 +14,8 @@ import torch
 
 Stats = Dict[str, torch.Tensor]  # {"n": f32, "mean": f32, "m2": f32}
 
-__all__ = ["init", "observe", "merge", "subtract", "variance", "from_batch"]
+__all__ = ["init", "observe", "merge", "subtract", "variance", "stddev",
+           "from_batch", "tree_reduce_merge"]
 
 
 def init(shape=(), device=None, dtype=torch.float32) -> Stats:
@@ -65,6 +66,26 @@ def variance(s: Stats, ddof: int = 1) -> torch.Tensor:
     denom = s["n"] - ddof
     return torch.where(denom > 0,
                        s["m2"] / torch.where(denom > 0, denom, 1.0), 0.0)
+
+
+def stddev(s: Stats, ddof: int = 1) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(variance(s, ddof), min=0.0))
+
+
+def tree_reduce_merge(s: Stats, dim: int = 0) -> Stats:
+    """Reduce a stacked Stats along ``dim`` with the Chan merge, in the
+    reference's log-depth pairwise order (halves merged, an odd tail
+    carried to the next level)."""
+    s = {k: torch.movedim(v, dim, 0) for k, v in s.items()}
+    while s["n"].shape[0] > 1:
+        k = s["n"].shape[0]
+        half = k // 2
+        m = merge({kk: v[:half] for kk, v in s.items()},
+                  {kk: v[half:2 * half] for kk, v in s.items()})
+        if k % 2:
+            m = {kk: torch.cat([v, s[kk][-1:]], 0) for kk, v in m.items()}
+        s = m
+    return {k: v[0] for k, v in s.items()}
 
 
 def from_batch(y: torch.Tensor, w=None, dim: int = 0) -> Stats:

@@ -30,7 +30,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build", "library",
            "check", "BuildError"]
 
-SOURCES = ("qo_route", "qo_update_leaves", "qo_query_batched")
+SOURCES = ("qo_route", "qo_update_leaves", "qo_query_batched",
+           "sketch_compact", "qo_update", "qo_query")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

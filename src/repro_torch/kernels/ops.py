@@ -1,8 +1,9 @@
-"""Public forest-scale ops over the dict-of-tensors table layout.
+"""Public ops over the dict-of-tensors table layout.
 
-Thin wrappers over the three kernel modules, mirroring the forest family
-of the reference's ``src/repro/kernels/ops.py``.  Tables are (N, F, C)
-with N any table-axis length (one tree's M, or a forest's folded T*M).
+Thin wrappers over the kernel modules, mirroring the single-table, forest
+and sketch families of the reference's ``src/repro/kernels/ops.py``.
+Forest tables are (N, F, C) with N any table-axis length (one tree's M,
+or a forest's folded T*M); a sketch's last axis holds K centroids.
 Each op launches its CUDA kernel on CUDA tensors and runs the kernel's
 plain PyTorch version on CPU tensors; there is no other backend switch,
 and no compile cache or batch bucketing (PyTorch runs eagerly).
@@ -11,13 +12,49 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import qo_query_batched, qo_route, qo_update_leaves
+from repro_torch.core import sketch as sketch_lib
+from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
+                                 qo_update_leaves)
+from repro_torch.kernels.qo_update import update as _qo_update_planes
 
-__all__ = ["forest_bin_ids", "forest_update", "forest_best_splits",
-           "forest_route", "route", "sort_rows"]
+__all__ = ["qo_update", "qo_best_split", "forest_bin_ids", "forest_update",
+           "forest_best_splits", "forest_route", "route", "sort_rows",
+           "sketch_update", "sketch_merge", "sketch_to_bins"]
 
 sort_rows = qo_update_leaves.sort_rows
 
+
+# --------------------------------------------------------------------------
+# single-table ops
+# --------------------------------------------------------------------------
+
+def qo_update(table, x, y, w=None):
+    """Kernel-backed :func:`repro_torch.core.qo.update` on the table's
+    device: x, y and optional w (any shapes, flattened) -> a new table."""
+    dev = table["sum_x"].device
+    as32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                     device=dev).reshape(-1).contiguous()
+    x, y = as32(x), as32(y)
+    w = torch.ones_like(x) if w is None else as32(w)
+    ty = table["y"]
+    n, mean, m2, sum_x = _qo_update_planes(
+        ty["n"], ty["mean"], ty["m2"], table["sum_x"], table["radius"],
+        table["origin"], x, y, w)
+    return {"radius": table["radius"], "origin": table["origin"],
+            "sum_x": sum_x, "y": {"n": n, "mean": mean, "m2": m2}}
+
+
+def qo_best_split(table) -> qo_query.SplitResult:
+    """Kernel-backed :func:`repro_torch.core.qo.best_split`: every
+    boundary evaluated and the best one picked in one launch."""
+    ty = table["y"]
+    return qo_query.split(*(a.contiguous() for a in (
+        ty["n"], ty["mean"], ty["m2"], table["sum_x"])))
+
+
+# --------------------------------------------------------------------------
+# forest ops
+# --------------------------------------------------------------------------
 
 def forest_bin_ids(ao_radius, ao_origin, leaf, X, n_bins: int):
     """(B, F) int32 bin ids of each routed row in its leaf's tables, with
@@ -85,3 +122,46 @@ def route(feature, threshold, child, is_leaf, X, *, depth: int):
     return forest_route(feature[None], threshold[None], child[None],
                         is_leaf[None], X, depth=depth)[0]
 
+
+
+# --------------------------------------------------------------------------
+# sketch-observer ops: K rank-bucket centroids per (leaf, feature)
+# --------------------------------------------------------------------------
+
+def sketch_merge(a_y, a_sum_x, b_y, b_sum_x):
+    """Merge two same-shape (N, F, K) sketch table sets: the 2K centroids
+    of each table compacted back to K.  Returns new ``(ao_y, ao_sum_x)``.
+    The elementwise Chan merge would be wrong here: slot i of two
+    sketches covers different rank ranges."""
+    n, mean, m2, sum_x = sketch_lib.merge_planes(
+        a_y["n"], a_y["mean"], a_y["m2"], a_sum_x,
+        b_y["n"], b_y["mean"], b_y["m2"], b_sum_x)
+    return {"n": n, "mean": mean, "m2": m2}, sum_x
+
+
+def sketch_update(ao_y, ao_sum_x, leaf, X, y, w=None):
+    """Absorb a routed batch into every (N, F, K) sketch, out of place.
+
+    leaf: (R,) table ids (-1 rows vanish), R a multiple of B; X: (B, F);
+    y: (B,); w: optional (R,) weights.  Row r reads ``X[r % B]`` (a
+    forest passes its T*B folded rows without tiling X).  One batch is ONE
+    compaction of every table: pre-sketch, then :func:`sketch_merge`.
+    Returns new ``(ao_y, ao_sum_x)``."""
+    N, _, K = ao_sum_x.shape
+    leaf = leaf.reshape(-1)
+    w = torch.ones(leaf.shape, dtype=torch.float32, device=X.device) \
+        if w is None else w.reshape(-1)
+    b_n, b_mean, b_m2, b_sx = sketch_lib.from_batch_planes(leaf, X, y, w,
+                                                           N, K)
+    return sketch_merge(ao_y, ao_sum_x,
+                        {"n": b_n, "mean": b_mean, "m2": b_m2}, b_sx)
+
+
+def sketch_to_bins(ao_y, ao_sum_x):
+    """Sketch state -> query-ready bins: centroids in ascending-prototype
+    order ARE a sorted bin table, so this is a stable sort along the slot
+    axis (the identity on the state :func:`sketch_update` keeps) and
+    :func:`forest_best_splits` consumes the result unchanged."""
+    n, mean, m2, sum_x = (a.contiguous() for a in sketch_lib.sort_planes(
+        ao_y["n"], ao_y["mean"], ao_y["m2"], ao_sum_x))
+    return {"n": n, "mean": mean, "m2": m2}, sum_x

@@ -27,10 +27,20 @@ import torch
 from repro_torch.core import stats
 from repro_torch.kernels import _build
 
-__all__ = ["bin_ids_plain", "absorb_plain", "absorb_kernel", "absorb",
-           "sort_rows"]
+__all__ = ["xla_int32", "bin_ids_plain", "absorb_plain", "absorb_kernel",
+           "absorb", "sort_rows"]
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def xla_int32(v) -> torch.Tensor:
+    """f32 -> int32 as XLA casts (ROADMAP C1): truncation toward zero,
+    saturating at the int32 limits, NaN -> 0, returned as int64 so that a
+    caller can reproduce int32 wraparound on what it adds next.  torch's
+    own ``.to(int32)`` sends NaN and +inf to INT_MIN on x86."""
+    h = torch.nan_to_num(v.double(), nan=0.0, posinf=float(_I32_MAX),
+                         neginf=float(_I32_MIN))
+    return torch.clamp(h, _I32_MIN, _I32_MAX).to(torch.int64)
 
 
 def bin_ids_plain(radius, origin, X, n_bins: int) -> torch.Tensor:
@@ -41,10 +51,7 @@ def bin_ids_plain(radius, origin, X, n_bins: int) -> torch.Tensor:
     +inf lands in bin 0, NaN in bin ``n_bins // 2``.  A plain
     ``floor(...).to(int32)`` would send NaN to INT_MIN (bin 0) instead.
     """
-    h = torch.floor((X - origin) / radius)
-    h = torch.nan_to_num(h.double(), nan=0.0, posinf=float(_I32_MAX),
-                         neginf=float(_I32_MIN))
-    h = torch.clamp(h, _I32_MIN, _I32_MAX).to(torch.int64) + n_bins // 2
+    h = xla_int32(torch.floor((X - origin) / radius)) + n_bins // 2
     h = (h - _I32_MIN) % (2 ** 32) + _I32_MIN        # int32 wraparound
     return torch.clamp(h, 0, n_bins - 1).to(torch.int32)
 

@@ -1,4 +1,5 @@
-"""Port parity: the three kernel modules of ``repro_torch.kernels``.
+"""Port parity: the forest kernel modules of ``repro_torch.kernels`` (the
+single-table and sketch ones: ``test_torch_qo.py``, ``test_torch_sketch.py``).
 
 Each plain PyTorch version (what a wrapper runs on a CPU tensor) is held
 against the JAX package's op on the same numpy inputs, through both of
@@ -18,7 +19,9 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import qo_query_batched, qo_route, qo_update_leaves
+from repro_torch.core import sketch as tsk
+from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
+                                 qo_update, qo_update_leaves, sketch_compact)
 
 TOL = 1e-4
 BACKENDS = ("jnp", "interpret")
@@ -336,3 +339,71 @@ class TestOnCard:
             ty, tsx, torch.zeros(N, dtype=torch.bool, device=card))
         assert torch.isneginf(merit).all()
         assert _build.LAUNCHES["qo_query_batched"] == before
+
+    def test_sketch_compact_kernel(self, card):
+        rng = np.random.default_rng(4)
+        for J, K in ((32, 16), (80, 40)):
+            n = (rng.integers(0, 6, (300, J)) * (rng.random((300, J)) < 0.8)
+                 ).astype(np.float32)
+            planes = [torch.tensor(a, device=card) for a in (
+                n, rng.normal(0, 2, (300, J)).astype(np.float32),
+                (n * rng.uniform(0, 1, (300, J))).astype(np.float32),
+                (n * rng.normal(0, 1, (300, J))).astype(np.float32))]
+            planes = [a.contiguous() for a in tsk.sort_planes(*planes)]
+            bucket = tsk._bucket_ids(planes[0], K)
+            # row 0 with unsorted ids: the kernel's centroid-by-centroid path
+            bucket[0] = torch.flip(bucket[0], [0])
+            before = _build.LAUNCHES["sketch_compact"]
+            k = sketch_compact.bucket_reduce_kernel(*planes, bucket, K)
+            p = sketch_compact.bucket_reduce_plain(*planes, bucket, K)
+            assert _build.LAUNCHES["sketch_compact"] == before + 1
+            assert torch.equal(k[0], p[0])
+            for a, b in zip(k[1:], p[1:]):
+                torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+            again = sketch_compact.bucket_reduce_kernel(*planes, bucket, K)
+            assert all(torch.equal(a, b) for a, b in zip(k, again))
+
+    def test_qo_update_kernel(self, card):
+        rng = np.random.default_rng(5)
+        C, N = 256, 20000
+        n = rng.integers(0, 4, C).astype(np.float32)
+        table = [torch.tensor(a, device=card) for a in (
+            n, np.where(n > 0, rng.normal(0, 1, C), 0).astype(np.float32),
+            np.where(n > 1, rng.uniform(0, 1, C), 0).astype(np.float32),
+            (n * rng.normal(0, 1, C)).astype(np.float32))]
+        x = rng.normal(0, 1, N).astype(np.float32)
+        x[:6] = [1e10, np.inf, -np.inf, np.nan, 0.0, -0.0]
+        args = [torch.tensor(np.float32(0.02), device=card),
+                torch.tensor(np.float32(0.1), device=card)] + [
+            torch.tensor(a, device=card) for a in (
+                x, rng.normal(0, 2, N).astype(np.float32),
+                rng.integers(0, 5, N).astype(np.float32))]
+        k = qo_update.update_kernel(*table, *args)
+        p = qo_update.update_plain(*table, *args)
+        assert torch.equal(k[0], p[0])
+        for a, b in zip(k[1:], p[1:]):
+            torch.testing.assert_close(a, b, rtol=TOL, atol=TOL,
+                                       equal_nan=True)
+        again = qo_update.update_kernel(*table, *args)
+        assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                   for a, b in zip(k, again))
+
+    def test_qo_query_kernel(self, card):
+        rng = np.random.default_rng(6)
+        for C, occupied in ((1024, 300), (96, 1), (3000, 2000), (64, 0)):
+            n = np.zeros(C, np.float32)
+            n[rng.choice(C, occupied, replace=False)] = rng.integers(
+                1, 9, occupied)
+            planes = [torch.tensor(a, device=card) for a in (
+                n, np.where(n > 0, rng.normal(0, 3, C), 0).astype(np.float32),
+                np.where(n > 1, rng.uniform(0, 2, C), 0).astype(np.float32),
+                (n * (np.arange(C) + rng.uniform(0, 1, C))).astype(
+                    np.float32))]
+            ks, kc, kr = qo_query.best_kernel(*planes)
+            ps, pc, pr = qo_query.best_plain(*planes)
+            assert torch.equal(torch.isneginf(ks), torch.isneginf(ps))
+            fin = torch.isfinite(ps)
+            torch.testing.assert_close(ks[fin], ps[fin], rtol=TOL, atol=TOL)
+            torch.testing.assert_close(kc, pc, rtol=TOL, atol=TOL)
+            torch.testing.assert_close(kr, pr, rtol=TOL, atol=TOL)
+            assert float(kr[2]) == float(occupied >= 2)

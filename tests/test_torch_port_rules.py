@@ -5,7 +5,7 @@
 * every entry point called without ``device=`` raises when no GPU is
   visible instead of running on the CPU;
 * the kernel wrappers never run a CPU tensor through a CUDA launch path;
-* the configuration refuses what this slice does not port;
+* the configuration refuses what the port does not have;
 * ``chip_smoke.py`` fails, printing no result, without a GPU and when it
   stands alone in a directory.
 """
@@ -22,8 +22,10 @@ import torch
 
 from repro_torch.core import forest as tfr
 from repro_torch.core import hoeffding as tht
+from repro_torch.core import qo as tqo
 from repro_torch.core import serve as tsv
-from repro_torch.kernels import qo_query_batched, qo_route, qo_update_leaves
+from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
+                                 qo_update, qo_update_leaves, sketch_compact)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -54,9 +56,11 @@ def test_every_port_module_is_scanned():
     names = {p.stem for p in PORT.rglob("*.py")}
     assert {"stats", "decide", "hoeffding", "forest", "serve", "ops",
             "qo_route", "qo_update_leaves", "qo_query_batched", "_build",
-            "synth", "convert"} <= names
+            "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
+            "sketch_compact"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
-        "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu"}
+        "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
+        "sketch_compact.cu", "qo_update.cu", "qo_query.cu"}
 
 
 @pytest.fixture
@@ -71,7 +75,10 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
         tht.init_state(CFG.tree)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tfr.init_forest(CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tqo.init(16, 0.1)
     tree = tht.init_state(CFG.tree, device="cpu")
+    table = tqo.init(16, 0.1, device="cpu")
     state = tfr.init_forest(CFG, device="cpu")
     snap = tsv.freeze(state, device="cpu")
     calls = [lambda: tht.update(CFG.tree, tree, X, y),
@@ -79,7 +86,9 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
              lambda: tfr.update(CFG, state, X, y),
              lambda: tfr.predict(CFG, state, X),
              lambda: tsv.freeze(state),
-             lambda: tsv.predict_snapshot(snap, X)]
+             lambda: tsv.predict_snapshot(snap, X),
+             lambda: tqo.update(table, y, y),
+             lambda: tqo.best_split(table)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU is visible"):
             call()
@@ -108,11 +117,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                        torch.zeros(2), torch.ones(2))
     with pytest.raises(ValueError, match="qo_query_batched"):
         qo_query_batched.best_splits_kernel(tab, torch.zeros((4, 3, 8)), z)
+    planes = [torch.zeros((4, 8)) for _ in range(4)]
+    with pytest.raises(ValueError, match="sketch_compact"):
+        sketch_compact.bucket_reduce_kernel(
+            *planes, torch.zeros((4, 8), dtype=torch.int32), 4)
+    one = [torch.zeros(8) for _ in range(4)]
+    with pytest.raises(ValueError, match="qo_update"):
+        qo_update.update_kernel(*one, torch.tensor(1.0), torch.tensor(0.0),
+                                torch.zeros(2), torch.zeros(2), torch.ones(2))
+    with pytest.raises(ValueError, match="qo_query"):
+        qo_query.best_kernel(*one)
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tht.HTRConfig(n_features=3, observer_backend="sketch")
+    sketch = tht.HTRConfig(n_features=3, observer_backend="sketch")
+    assert sketch.observer_bins() == sketch.sketch_k
+    with pytest.raises(ValueError, match="no oracle engine"):
+        tht.HTRConfig(n_features=3, observer_backend="sketch",
+                      split_backend="oracle")
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tht.HTRConfig(n_features=3, split_backend="oracle")
     for backend in ("jnp", "pallas", "interpret", "cuda"):
