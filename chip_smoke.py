@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Three paths at full width, each fatal on failure:
+Four paths at full width, each fatal on failure:
 
 * ``forest_t16_m1023_f16_c64``: an online-bagged forest of T=16 QO
   Hoeffding trees, M=1023 nodes, max depth 12, F=16 features, C=64 bins,
@@ -13,21 +13,28 @@ Three paths at full width, each fatal on failure:
   the same stream fed as exp(X) (heavy-tailed; monotone, so the planted
   splits survive);
 * ``qo_c1024_n1e6``: the single-table QO observer (paper Algorithms 1 and
-  2) on the paper's §5.1 streams of 1,000,000 rows, C=1024 bins.
+  2) on the paper's §5.1 streams of 1,000,000 rows, C=1024 bins;
+* ``dp_t16_m1023_f16_c64_d4``: data-parallel stream training of the first
+  forest (DESIGN.md §4.1) with D=4 shards on the one card
+  (``build_data_parallel_reference``: what each rank of a 4-GPU run
+  computes), global batches of B=4096 rows (1024 a shard), a sync every
+  2 batches.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, all at once) into ``build/kernels/``;
+2. build the seven CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   per source, all at once) into ``build/kernels/``;
 3. per kernel, at the shapes its path gives it (the forests after 8
-   learned batches, one table absorbing a 1e6-row stream): kernel vs its
+   learned batches, one table absorbing a 1e6-row stream, the first reduce
+   level of the D=4 sync after 8 DP batches): kernel vs its
    plain PyTorch version on the card (ids and counts exact; other
    statistics, merits and thresholds within 1e-4 relative with an
    absolute floor of 1e-4 -- for the single table, relative to each bin's
    sum of |terms| and to the table's variance, since sums of 1e6 mixed-sign
    terms cancel -- identical -inf patterns, a threshold differing only at
-   a near-tie), and both timed (median of CUDA-event-timed repeats);
+   a near-tie; the Chan merge bitwise), and both timed (median of
+   CUDA-event-timed repeats);
 4. QO forest end to end: 32 batches through ``forest.update`` with the
    launch counts set to 0 just before and read just after; every kernel
    of the path must have run;
@@ -45,7 +52,21 @@ Phases:
    (``auto_radius``, k=2) and queried with ``qo.best_split``, with counts
    reset; each held against the plain versions and its merit against the
    exhaustive best split; then the quickstart stream at r=0.01, which
-   must find the planted x=0.3 within 0.1.
+   must find the planted x=0.3 within 0.1;
+10. data-parallel training end to end: 32 global batches with the counts
+    reset (``qo_merge`` 3 launches a sync: two reduce levels and the
+    apply), the member MSE reported at the syncs falling, every tree
+    grown, ``on_sync`` at every boundary, a bitwise rerun,
+    ``update_window`` (S=2) equal to two ``update`` calls, a snapshot
+    frozen at the last sync serving equal to live ``predict``, and
+    ``build_data_parallel_forest`` in a one-rank NCCL group equal to the
+    one-shard reference after 8 batches; then the same checks for the
+    sketch forest at D=2 over 8 batches (``sketch_merge`` in the reduce,
+    no ``qo_merge``);
+11. where the DP time goes: 8 global batches (4 syncs) after 8 warm-up
+    batches, timed per call and under torch.profiler: ms per global batch
+    and per sync, the device-busy share, the top device kernels and host
+    operations.
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -67,6 +88,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 T, M, F, C, DEPTH, B = 16, 1023, 16, 64, 12, 4096
 KS = 16                        # sketch centroids per (leaf, feature)
 QO_BINS, QO_ROWS = 1024, 1_000_000
+DP_SHARDS, DP_SYNC, DP_SKETCH_SHARDS = 4, 2, 2
 WARM_BATCHES, STREAM_BATCHES, SERVE_ROWS = 8, 32, 8192
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -504,6 +526,218 @@ def _paper_grid(seed, dev):
     return launches
 
 
+def _qo_merge_row(cfg, batches, seed, dev):
+    """Phase 3: the Chan-merge kernel at the first reduce level of the
+    D=4 sync -- shards 0-1 against shards 2-3, their (T, M) table axes
+    folded -- on the deltas after 8 DP batches and one more local step."""
+    import torch
+    from repro_torch.kernels import qo_merge
+    from repro_torch.train import sharding as sh
+    init, upd, _, _ = sh.build_data_parallel_reference(cfg, DP_SHARDS,
+                                                       DP_SYNC, device=dev)
+    st = init(seed)
+    for Xb, yb in batches[:WARM_BATCHES + 1]:
+        st, _ = upd(st, Xb, yb)
+    delta, half = st["delta"], DP_SHARDS // 2
+    fold = lambda a: a.reshape((-1, F, C))
+    side = lambda sl: [fold(delta["ao_y"][k][sl]) for k in
+                       ("n", "mean", "m2")] + [fold(delta["ao_sum_x"][sl])]
+    planes = side(slice(0, half)) + side(slice(half, DP_SHARDS))
+    out_k = qo_merge.merge_kernel(*planes)
+    out_p = qo_merge.merge_plain(*planes)
+    for name, a, b in zip(("n", "mean", "m2", "sum_x"), out_k, out_p):
+        if not torch.equal(a, b):
+            raise AssertionError(f"qo_merge: {name} differs from the plain "
+                                 f"version")
+    err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+    E = planes[0].numel()
+    bound, by = _bound(12 * 4 * E, 14 * E)
+    occupied = int((planes[0] > 0).sum() + (planes[4] > 0).sum())
+    print(f"[3] qo_merge: 2 x ({planes[0].shape[0]}, {F}, {C}) tables, "
+          f"{occupied} occupied cells of {2 * E}, bitwise equal to the "
+          f"plain version", flush=True)
+    row = dict(
+        name="qo_merge", route="cuda", source="src/repro_torch/csrc/qo_merge.cu",
+        replaces="src/repro/kernels/qo_merge.py:77", max_abs_err=err,
+        ms=_time_ms(lambda: qo_merge.merge_kernel(*planes)),
+        plain_ms=_time_ms(lambda: qo_merge.merge_plain(*planes)),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    return row
+
+
+def _same(a, b, what):
+    """Bitwise equality of two nested dicts/lists of tensors."""
+    import torch
+    if isinstance(a, dict):
+        for k in a:
+            _same(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (u, v) in enumerate(zip(a, b)):
+            _same(u, v, f"{what}/{i}")
+    elif torch.is_tensor(a):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    elif a != b:
+        raise AssertionError(f"{what} differs: {a} != {b}")
+
+
+def _dp_path(cfg, batches, shards, seed, dev, tag, kernels, n_nccl=8):
+    """Phase 10 for one configuration: DP training through the reference
+    with the counts reset, then the rerun, window, snapshot and one-rank
+    NCCL checks.  Returns the launch counts of the main run."""
+    import datetime
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import serve as sv
+    from repro_torch.kernels import _build
+    from repro_torch.train import sharding as sh
+
+    def run(n_shards=shards, batches=batches, on_sync=None):
+        init, upd, _, pred = sh.build_data_parallel_reference(
+            cfg, n_shards, DP_SYNC, on_sync, device=dev)
+        st, mse = init(seed), []
+        for Xb, yb in batches:
+            st, aux = upd(st, Xb, yb)
+            if aux is not None:
+                mse.append(float(aux["member_mse"].mean()))
+        return st, mse, pred
+
+    fired = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, mse, pred = run(on_sync=lambda f, step, aux: fired.append(step))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n = len(batches)
+    n_syncs = n // DP_SYNC
+    print(f"{tag} member MSE at the syncs: "
+          + " ".join(f"{m:.4f}" for m in mse))
+    print(f"{tag} nodes per tree: "
+          f"{state['forest']['trees']['n_nodes'].tolist()}")
+    print(f"{tag} {n} global batches of {B} rows over {shards} shards in "
+          f"{secs:.3f} s: {n * B / secs:.0f} rows/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    print(f"{tag} kernels {json.dumps(launches)}", flush=True)
+    for name, want in kernels.items():
+        if (want is None and launches[name] <= 0) or \
+                (want is not None and launches[name] != want):
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"DP path, expected "
+                                 f"{'> 0' if want is None else want}")
+    if fired != list(range(DP_SYNC, n + 1, DP_SYNC)) or len(mse) != n_syncs:
+        raise AssertionError(f"on_sync fired at {fired}")
+    if not (np.isfinite(mse).all() and mse[-1] < mse[0]):
+        raise AssertionError(f"DP member MSE did not fall: {mse}")
+    if not bool((state["forest"]["trees"]["n_nodes"] > 1).all()):
+        raise AssertionError("a DP tree never split")
+
+    again, mse2, _ = run()
+    _same(state, again, "DP rerun")
+    if mse != mse2:
+        raise AssertionError("DP rerun MSE trace differs")
+    del again
+    print(f"{tag} rerun from the same seed: bitwise-equal state", flush=True)
+
+    init, upd, win, _ = sh.build_data_parallel_reference(cfg, shards,
+                                                         DP_SYNC, device=dev)
+    st_w, st_p = init(seed), init(seed)
+    for i in range(0, min(n, 4), DP_SYNC):
+        window = batches[i:i + DP_SYNC]
+        st_w, _ = win(st_w, torch.stack([Xb for Xb, _ in window]),
+                      torch.stack([yb for _, yb in window]))
+        for Xb, yb in window:
+            st_p, _ = upd(st_p, Xb, yb)
+        _same(st_w, st_p, f"window at batch {i}")
+    del st_w, st_p
+    print(f"{tag} update_window (S={DP_SYNC}) equals {DP_SYNC} update "
+          f"calls bitwise", flush=True)
+
+    Xs, _ = batches[-1]
+    snap = sv.freeze(state["forest"], device=dev)
+    if not torch.equal(sv.predict_snapshot(snap, Xs, device=dev),
+                       pred(state, Xs)):
+        raise AssertionError("DP snapshot differs from live predict")
+    print(f"{tag} snapshot at step {state['step']} (depth {snap.depth}): "
+          f"equals live predict bitwise", flush=True)
+    del state
+
+    tmp = tempfile.mkdtemp(prefix="dp_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        init_d, upd_d, _, _ = sh.build_data_parallel_forest(
+            cfg, sync_every=DP_SYNC, device=dev)
+        init_r, upd_r, _, _ = sh.build_data_parallel_reference(
+            cfg, 1, DP_SYNC, device=dev)
+        st_d, st_r = init_d(seed), init_r(seed)
+        for Xb, yb in batches[:n_nccl]:
+            st_d, aux_d = upd_d(st_d, Xb, yb)
+            st_r, aux_r = upd_r(st_r, Xb, yb)
+            if (aux_d is None) != (aux_r is None):
+                raise AssertionError("NCCL builder syncs at other steps")
+            if aux_d is not None:
+                _same(st_d, st_r, f"NCCL builder at step {st_d['step']}")
+                _same(aux_d, aux_r, f"NCCL aux at step {st_d['step']}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{tag} build_data_parallel_forest (one-rank NCCL group) equals "
+          f"the one-shard reference bitwise over {n_nccl} batches",
+          flush=True)
+    return launches
+
+
+def _dp_profile(cfg, batches, seed, dev):
+    """Phase 11: where the time of a DP global batch goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import sharding as sh
+    init, upd, _, _ = sh.build_data_parallel_reference(cfg, DP_SHARDS,
+                                                       DP_SYNC, device=dev)
+
+    def warm():
+        st = init(seed)
+        for Xb, yb in batches[:WARM_BATCHES]:
+            st, _ = upd(st, Xb, yb)
+        torch.cuda.synchronize()
+        return st
+
+    window = batches[WARM_BATCHES:2 * WARM_BATCHES]
+    st = warm()
+    local, sync = [], []
+    for Xb, yb in window:
+        t0 = time.perf_counter()
+        st, aux = upd(st, Xb, yb)
+        torch.cuda.synchronize()
+        (local if aux is None else sync).append(time.perf_counter() - t0)
+    plain_wall = sum(local) + sum(sync)
+    local_ms = statistics.mean(local) * 1e3
+    print(f"[11] {len(window)} global batches ({len(sync)} syncs): "
+          f"{plain_wall / len(window) * 1e3:.3f} ms a global batch; a local "
+          f"step {local_ms:.3f} ms, a syncing step "
+          f"{statistics.mean(sync) * 1e3:.3f} ms, so "
+          f"{statistics.mean(sync) * 1e3 - local_ms:.3f} ms a sync",
+          flush=True)
+    st = warm()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for Xb, yb in window:
+            st, _ = upd(st, Xb, yb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(prof, len(window), wall, plain_wall,
+            f"DP global batches (D = {DP_SHARDS})", "[11]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -680,6 +914,7 @@ def main(argv=None) -> int:
     del ty_k, tsx_k, ty_p, tsx_p, scratch_k, scratch_p, state, trees, after
     rows.append(_sketch_compact_row(scfg, sbatches, args.seed, dev))
     rows.extend(_qo_rows(args.seed, dev))
+    rows.append(_qo_merge_row(cfg, batches, args.seed, dev))
 
     # ---- 4. end to end ----------------------------------------------------
     def stream():
@@ -711,15 +946,7 @@ def main(argv=None) -> int:
 
     # ---- 5. determinism ---------------------------------------------------
     again, mse2 = stream()
-
-    def same(a, b, path=""):
-        if isinstance(a, dict):
-            for k in a:
-                same(a[k], b[k], f"{path}/{k}")
-        elif not torch.equal(a, b):
-            raise AssertionError(f"rerun differs at {path}")
-
-    same(state, again)
+    _same(state, again, "rerun")
     if mse != mse2:
         raise AssertionError("rerun forest_mse trace differs")
     print("[5] rerun from the same seed: bitwise-equal state", flush=True)
@@ -751,11 +978,25 @@ def main(argv=None) -> int:
     # ---- 9. the single-table QO observer ----------------------------------
     qo_launches = _paper_grid(args.seed, dev)
 
+    # ---- 10. data-parallel training ---------------------------------------
+    dp_launches = _dp_path(
+        cfg, batches, DP_SHARDS, args.seed, dev, "[10]",
+        {"qo_merge": 3 * STREAM_BATCHES // DP_SYNC, "qo_route": None,
+         "qo_update_leaves": None, "qo_query_batched": None})
+    _dp_path(scfg, sbatches[:WARM_BATCHES], DP_SKETCH_SHARDS, args.seed, dev,
+             "[10 sketch]", {"qo_merge": 0, "qo_update_leaves": 0,
+                             "sketch_compact": None, "qo_route": None,
+                             "qo_query_batched": None}, n_nccl=4)
+
+    # ---- 11. where the DP time goes ---------------------------------------
+    _dp_profile(cfg, batches, args.seed, dev)
+
     # launches from the phase whose path runs each kernel
     for row in rows:
         row["launches"] = {"sketch_compact": sketch_launches,
                            "qo_update": qo_launches,
-                           "qo_query": qo_launches}.get(
+                           "qo_query": qo_launches,
+                           "qo_merge": dp_launches}.get(
                                row["name"], launches)[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,11 +1,11 @@
-"""Carry tree states, forest states and snapshots across from the JAX
-package (as numpy arrays) and back.
+"""Carry tree states, forest states, data-parallel trainer states and
+snapshots across from the JAX package (as numpy arrays) and back.
 
 Key names, shapes and dtypes are the same on both sides.  One leaf does
 not carry over: the reference's threefry ``keys`` (ROADMAP C3).  It is
 dropped on the way in and replaced by ``rng``, the state of a
-``torch.Generator`` seeded with ``seed``; on the way out ``rng`` is left
-behind.
+``torch.Generator`` seeded with ``seed`` (for a data-parallel state, one
+generator state a shard); on the way out ``rng`` is left behind.
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ import torch
 
 from repro_torch import device as dv
 from repro_torch.core.serve import Snapshot, validate_snapshot
+from repro_torch.train.sharding import shard_rng_state
 
-__all__ = ["state_from_numpy", "state_to_numpy", "snapshot_from_numpy",
-           "snapshot_to_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy", "dp_state_from_numpy",
+           "dp_state_to_numpy", "snapshot_from_numpy", "snapshot_to_numpy"]
 
 _SNAPSHOT_ARRAYS = ("feature", "threshold", "child", "is_leaf", "leaf_mean",
                     "vote_w")
@@ -45,6 +46,28 @@ def state_to_numpy(state):
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items() if k != "rng"}
     return state.detach().cpu().numpy()
+
+
+def dp_state_from_numpy(dp, device=None, *, seed: int = 0):
+    """A reference data-parallel state ``{forest, delta, keys, step}`` (numpy
+    arrays) -> the port's ``{forest, delta, rng, step}`` on ``device``
+    (default ``cuda``).  ``forest`` and ``delta`` go tensor for tensor;
+    the (D, T, 2) ``keys`` become D shard generator states seeded from
+    ``seed``, as :func:`repro_torch.train.sharding.init_data_parallel`
+    seeds them."""
+    dev = dv.resolve(device)
+    return {"forest": state_from_numpy(dp["forest"], dev, seed=seed),
+            "delta": _to_torch(dp["delta"], dev),
+            "rng": [shard_rng_state(seed, d, dev)
+                    for d in range(np.shape(dp["keys"])[0])],
+            "step": int(dp["step"])}
+
+
+def dp_state_to_numpy(dp):
+    """The port's data-parallel state -> ``{forest, delta, step}`` as numpy
+    (the generator states left behind)."""
+    return {"forest": state_to_numpy(dp["forest"]),
+            "delta": state_to_numpy(dp["delta"]), "step": int(dp["step"])}
 
 
 def snapshot_from_numpy(arrays, *, depth: int, single: bool,

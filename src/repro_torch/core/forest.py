@@ -192,36 +192,62 @@ def _fold(a, T, M):
     return a.reshape((T * M,) + a.shape[2:])
 
 
-def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
-    """All T member updates as one flat pass: route, per-leaf target stats,
-    absorb (QO tables in place; sketch planes rebound), attempt.  w: (T, B)
-    sample weights."""
-    tcfg = cfg.tree
+def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
+    """Route all T members and reduce the batch's per-leaf target stats.
+
+    One folded route and one flat segment reduction over the global leaf
+    ids ``t*M + leaf``.  w: (T, B).  Returns ``(gl, leaf, batch_leaf)``:
+    the (T*B,) folded ids, the (T, B) per-tree ids and the (T, M) Stats
+    of the batch -- the shard-local quantities of the data-parallel
+    protocol, which accumulates them in a delta instead of the trees."""
     T, M = trees["feature"].shape
     leaf = _route_all(cfg, trees, X)
     gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None] * M
           + leaf).reshape(-1)
     batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1))
-    batch_leaf = {k: v.reshape(T, M) for k, v in batch_leaf.items()}
+    return gl, leaf, {k: v.reshape(T, M) for k, v in batch_leaf.items()}
+
+
+def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
+                         X, y, w):
+    """Absorb a routed batch into ANY (T, M, F, C) table set in one pass.
+
+    ``ao_y``/``ao_sum_x`` are the target (the trees' own tables, or a
+    shard's delta); the quantization grid (radius, origin) always comes
+    from ``trees``, so every shard bins alike and the deltas stay
+    mergeable.  gl: (T*B,) folded ids from :func:`_fused_route_stats`;
+    w: (T, B).  Returns ``(ao_y, ao_sum_x)``: the QO tables are updated
+    in place and returned; under the sketch observer new planes."""
+    T, M = trees["feature"].shape
+    flat = lambda a: _fold(a, T, M)
+    if cfg.tree.observer_backend == "sketch":
+        # the sketch needs no quantization grid: the folded leaf ids alone
+        # segment the batch
+        fy, fsx = kops.sketch_update({k: flat(v) for k, v in ao_y.items()},
+                                     flat(ao_sum_x), gl, X, y, w.reshape(-1))
+        unflat = lambda a: a.reshape((T, M) + a.shape[1:])
+        return {k: unflat(v) for k, v in fy.items()}, unflat(fsx)
+    kops.forest_update({k: flat(v) for k, v in ao_y.items()}, flat(ao_sum_x),
+                       flat(trees["ao_radius"]), flat(trees["ao_origin"]),
+                       gl, X, y, w.reshape(-1))
+    return ao_y, ao_sum_x
+
+
+def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
+    """All T member updates as one flat pass: route, per-leaf target stats,
+    absorb (QO tables in place; sketch planes rebound), attempt
+    (``ht.attempt_trees``, which the data-parallel sync runs on merged
+    statistics).  w: (T, B) sample weights."""
+    gl, _, batch_leaf = _fused_route_stats(cfg, trees, X, y, w)
     trees = dict(trees,
                  ystats=stats.merge(trees["ystats"], batch_leaf),
                  seen_since_attempt=trees["seen_since_attempt"]
                  + batch_leaf["n"])
-    flat = lambda a: _fold(a, T, M)
-    ao_y = {k: flat(v) for k, v in trees["ao_y"].items()}
-    if tcfg.observer_backend == "sketch":
-        # the sketch needs no quantization grid: the folded leaf ids alone
-        # segment the batch; the absorb returns new planes
-        ao_y, ao_sum_x = kops.sketch_update(ao_y, flat(trees["ao_sum_x"]),
-                                            gl, X, y, w.reshape(-1))
-        unflat = lambda a: a.reshape((T, M) + a.shape[1:])
-        trees = dict(trees, ao_y={k: unflat(v) for k, v in ao_y.items()},
-                     ao_sum_x=unflat(ao_sum_x))
-    else:
-        kops.forest_update(ao_y, flat(trees["ao_sum_x"]),
-                           flat(trees["ao_radius"]), flat(trees["ao_origin"]),
-                           gl, X, y, w.reshape(-1))
-    return ht.attempt_trees(tcfg, trees, feat_mask)
+    ao_y, ao_sum_x = _fused_absorb_tables(cfg, trees["ao_y"],
+                                          trees["ao_sum_x"], trees, gl, X, y,
+                                          w)
+    trees = dict(trees, ao_y=ao_y, ao_sum_x=ao_sum_x)
+    return ht.attempt_trees(cfg.tree, trees, feat_mask)
 
 
 def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,

@@ -13,13 +13,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import sketch as sketch_lib
-from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
-                                 qo_update_leaves)
+from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
+                                 qo_route, qo_update_leaves)
 from repro_torch.kernels.qo_update import update as _qo_update_planes
 
 __all__ = ["qo_update", "qo_best_split", "forest_bin_ids", "forest_update",
-           "forest_best_splits", "forest_route", "route", "sort_rows",
-           "sketch_update", "sketch_merge", "sketch_to_bins"]
+           "forest_merge", "forest_best_splits", "forest_route", "route",
+           "sort_rows", "sketch_update", "sketch_merge", "sketch_to_bins"]
 
 sort_rows = qo_update_leaves.sort_rows
 
@@ -79,6 +79,20 @@ def forest_update(ao_y, ao_sum_x, ao_radius, ao_origin, leaf, X, y, w=None):
     qo_update_leaves.absorb(ao_y, ao_sum_x, ao_radius, ao_origin, leaf,
                             X, y, w)
     return ao_y, ao_sum_x
+
+
+def forest_merge(a_y, a_sum_x, b_y, b_sum_x):
+    """Chan-merge two same-shape (N, F, C) QO table sets (DESIGN.md §4.1):
+    per-bin (n, mean, M2) through the Chan operator (Eqs. 4-5,
+    empty-operand safe) and ``sum_x`` summed.  N is any table-axis length
+    (a forest's folded T*M, or h shard deltas folded in).  Returns new
+    ``(ao_y, ao_sum_x)``; radius/origin do not ride through (the shards
+    share the forest's grid).  The data-parallel sync reduces shard deltas
+    with it and folds the result into the forest."""
+    n, mean, m2, sum_x = qo_merge.merge(*(a.contiguous() for a in (
+        a_y["n"], a_y["mean"], a_y["m2"], a_sum_x,
+        b_y["n"], b_y["mean"], b_y["m2"], b_sum_x)))
+    return {"n": n, "mean": mean, "m2": m2}, sum_x
 
 
 def forest_best_splits(ao_y, ao_sum_x, attempt):

@@ -20,8 +20,9 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.core import sketch as tsk
-from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
-                                 qo_update, qo_update_leaves, sketch_compact)
+from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
+                                 qo_route, qo_update, qo_update_leaves,
+                                 sketch_compact)
 
 TOL = 1e-4
 BACKENDS = ("jnp", "interpret")
@@ -257,6 +258,54 @@ def test_query_plain_matches_reference(M, frac):
                                    err_msg=b)
 
 
+def merge_operands(rng, N, F, C):
+    """Two table sets whose cells are, in turn, both occupied, occupied on
+    one side only and empty on both (with stray means on empty cells, which
+    the merge must ignore)."""
+    a_y, a_sx = random_tables(rng, N, F, C, occupied=0.6)
+    b_y, b_sx = random_tables(rng, N, F, C, occupied=0.6)
+    a_y["n"][0], b_y["n"][0] = 0.0, 0.0          # table 0: both empty
+    a_y["n"][1, 0] = 0.0                         # one-sided rows
+    b_y["n"][1, 1] = 0.0
+    a_y["mean"][0, 0, :3] = 5.0
+    for t in (a_y, b_y):
+        t["m2"] = np.where(t["n"] > 0, t["m2"], 0).astype(np.float32)
+    return a_y, a_sx, b_y, b_sx
+
+
+@pytest.mark.parametrize("N,C", [(5, 32), (7, 13)])
+def test_merge_plain_matches_reference(N, C):
+    """``forest_merge`` (the plain version on the CPU) against the
+    reference's op on both paths: n exact, the rest within 1e-4."""
+    rng = np.random.default_rng(N * C)
+    F = 3
+    a_y, a_sx, b_y, b_sx = merge_operands(rng, N, F, C)
+    py, psx = tops.forest_merge(
+        {k: torch.tensor(v) for k, v in a_y.items()}, torch.tensor(a_sx),
+        {k: torch.tensor(v) for k, v in b_y.items()}, torch.tensor(b_sx))
+    for b in BACKENDS:
+        ry, rsx = jops.forest_merge(
+            {k: jnp.asarray(v) for k, v in a_y.items()}, jnp.asarray(a_sx),
+            {k: jnp.asarray(v) for k, v in b_y.items()}, jnp.asarray(b_sx),
+            backend=b)
+        np.testing.assert_array_equal(py["n"].numpy(), np.asarray(ry["n"]),
+                                      err_msg=b)
+        for k in ("mean", "m2"):
+            np.testing.assert_allclose(py[k].numpy(), np.asarray(ry[k]),
+                                       rtol=TOL, atol=TOL, err_msg=f"{b}:{k}")
+        np.testing.assert_allclose(psx.numpy(), np.asarray(rsx), rtol=TOL,
+                                   atol=TOL, err_msg=b)
+    # empty on both sides: the merge identity, exactly
+    for k in ("n", "mean", "m2"):
+        assert not py[k][0].any()
+    # one-sided cells take the occupied side's statistics
+    one = a_y["n"][1, 0] == 0
+    np.testing.assert_allclose(py["mean"][1, 0].numpy()[one],
+                               b_y["mean"][1, 0][one], rtol=1e-6)
+    np.testing.assert_allclose(py["m2"][1, 0].numpy()[one],
+                               b_y["m2"][1, 0][one], rtol=1e-6)
+
+
 def test_query_all_quiet_queries_nothing(monkeypatch):
     """K = 0: no table is queried (on the card: no launch) and every merit
     is -inf, as the reference's concrete dispatch returns."""
@@ -387,6 +436,27 @@ class TestOnCard:
         again = qo_update.update_kernel(*table, *args)
         assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
                    for a, b in zip(k, again))
+
+    def test_qo_merge_kernel(self, card):
+        """Bitwise equal to the plain version on the card: the float4 path
+        (N*F*C % 4 == 0), the scalar tail and an unaligned operand."""
+        rng = np.random.default_rng(7)
+        for N, F, C in ((40, 3, 32), (9, 5, 13)):
+            a_y, a_sx, b_y, b_sx = merge_operands(rng, N, F, C)
+            planes = [torch.tensor(v, device=card) for v in (
+                a_y["n"], a_y["mean"], a_y["m2"], a_sx,
+                b_y["n"], b_y["mean"], b_y["m2"], b_sx)]
+            before = _build.LAUNCHES["qo_merge"]
+            k = qo_merge.merge_kernel(*planes)
+            assert _build.LAUNCHES["qo_merge"] == before + 1
+            p = qo_merge.merge_plain(*planes)
+            assert all(torch.equal(u, v) for u, v in zip(k, p))
+            # an operand 4 bytes off a 16-byte boundary: the scalar path
+            shifted = [torch.cat([torch.zeros(1, device=card),
+                                  t.reshape(-1)])[1:].reshape(t.shape)
+                       for t in planes]
+            k = qo_merge.merge_kernel(*shifted)
+            assert all(torch.equal(u, v) for u, v in zip(k, p))
 
     def test_qo_query_kernel(self, card):
         rng = np.random.default_rng(6)

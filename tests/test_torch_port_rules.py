@@ -24,8 +24,11 @@ from repro_torch.core import forest as tfr
 from repro_torch.core import hoeffding as tht
 from repro_torch.core import qo as tqo
 from repro_torch.core import serve as tsv
-from repro_torch.kernels import (qo_query, qo_query_batched, qo_route,
-                                 qo_update, qo_update_leaves, sketch_compact)
+from repro_torch.kernels import _build
+from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
+                                 qo_route, qo_update, qo_update_leaves,
+                                 sketch_compact)
+from repro_torch.train import sharding as tsh
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -57,10 +60,10 @@ def test_every_port_module_is_scanned():
     assert {"stats", "decide", "hoeffding", "forest", "serve", "ops",
             "qo_route", "qo_update_leaves", "qo_query_batched", "_build",
             "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
-            "sketch_compact"} <= names
+            "sketch_compact", "qo_merge", "sharding", "compress"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
-        "sketch_compact.cu", "qo_update.cu", "qo_query.cu"}
+        "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu"}
 
 
 @pytest.fixture
@@ -77,6 +80,10 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
         tfr.init_forest(CFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tqo.init(16, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsh.build_data_parallel_reference(CFG, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsh.init_data_parallel(CFG, 0, 2)
     tree = tht.init_state(CFG.tree, device="cpu")
     table = tqo.init(16, 0.1, device="cpu")
     state = tfr.init_forest(CFG, device="cpu")
@@ -127,6 +134,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 torch.zeros(2), torch.zeros(2), torch.ones(2))
     with pytest.raises(ValueError, match="qo_query"):
         qo_query.best_kernel(*one)
+    with pytest.raises(ValueError, match="qo_merge"):
+        qo_merge.merge_kernel(*one, *one)
+
+
+def test_qo_merge_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    """``qo_merge.merge`` on CPU tensors never reaches the launcher."""
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA launch")
+    monkeypatch.setattr(qo_merge, "merge_kernel", boom)
+    monkeypatch.setattr(qo_merge, "_launcher", boom)
+    before = dict(_build.LAUNCHES)
+    planes = [torch.rand(3, 4) for _ in range(8)]
+    out = qo_merge.merge(*planes)
+    assert all(torch.equal(a, b) for a, b in
+               zip(out, qo_merge.merge_plain(*planes)))
+    assert _build.LAUNCHES == before
+
+
+def test_distributed_builder_raises_without_gpu(no_gpu, tmp_path):
+    """``build_data_parallel_forest`` without ``device=`` raises before it
+    reads the group (a one-rank gloo group here)."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=30))
+    try:
+        with pytest.raises(RuntimeError, match="no GPU is visible"):
+            tsh.build_data_parallel_forest(CFG)
+        init, _, _, _ = tsh.build_data_parallel_forest(CFG, device="cpu")
+        assert init(0)["delta"]["ao_sum_x"].shape[0] == 1
+    finally:
+        dist.destroy_process_group()
 
 
 def test_config_refuses_what_is_not_ported():
