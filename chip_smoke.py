@@ -34,7 +34,10 @@ Phases:
    sum of |terms| and to the table's variance, since sums of 1e6 mixed-sign
    terms cancel -- identical -inf patterns, a threshold differing only at
    a near-tie; the Chan merge bitwise), and both timed (median of
-   CUDA-event-timed repeats);
+   CUDA-event-timed repeats); both absorbs run twice and the runs
+   compared bitwise, the forest absorb also on a fresh forest's first batch (every
+   row in one of the 16 roots, 4,096 rows a leaf: several pieces a leaf),
+   the single-table absorb also with all 1e6 rows in one bin;
 4. QO forest end to end: 32 batches through ``forest.update`` with the
    launch counts set to 0 just before and read just after; every kernel
    of the path must have run;
@@ -131,6 +134,22 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def _device_ms(fn, reps=10):
+    """Device time of one call of ``fn``, in ms: the profiler's CUDA
+    kernel time over ``reps`` calls (after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
 def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -179,11 +198,21 @@ def _report(prof, n, wall, plain_wall, what, tag):
     print(f"{tag} {n} {what}: {plain_wall / n * 1e3:.3f} ms each "
           f"unprofiled; profiled {wall / n * 1e3:.3f} ms each with device "
           f"busy {busy / n:.3f} ms ({busy / (wall * 1e3):.1%} of wall)")
+    calls = {}
     for e in kernels:
         if e.key.startswith(("qo_", "sketch_")):
-            print(f"{tag} device time of {e.key.split('(')[0]}: "
+            name = e.key.split('(')[0]
+            print(f"{tag} device time of {name}: "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms per "
                   f"launch, {e.count / n:.1f} launches each")
+            wrapper = _wrapper_of(name)
+            ms, count = calls.get(wrapper, (0.0, 0))
+            calls[wrapper] = (ms + e.self_device_time_total / 1e3,
+                              max(count, e.count))
+    for wrapper, (ms, count) in sorted(calls.items()):
+        print(f"{tag} device time of the {wrapper} wrapper: "
+              f"{ms / count:.4f} ms per call (its kernels together), "
+              f"{count / n:.1f} calls each")
     print(f"{tag} top device kernels (ms each, calls each):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f}  "
@@ -192,6 +221,72 @@ def _report(prof, n, wall, plain_wall, what, tag):
     for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]:
         print(f"    {e.self_cpu_time_total / 1e3 / n:8.4f}  "
               f"{e.count / n:6.1f}  {e.key[:100]}", flush=True)
+
+
+def _wrapper_of(kernel):
+    """The wrapper (a key of ``_build.LAUNCHES``) that launches a CUDA
+    kernel: the longest wrapper name the kernel's name starts with."""
+    from repro_torch.kernels import _build
+    names = [w for w in _build.LAUNCHES if kernel.startswith(w)]
+    return max(names, key=len) if names else kernel
+
+
+def _tables_equal(a, b, what):
+    """Bitwise equality of two (Stats dict, sum_x) table sets."""
+    import torch
+    (ay, asx), (by, bsx) = a, b
+    if not all(torch.equal(ay[k], by[k]) for k in ("n", "mean", "m2")) \
+            or not torch.equal(asx.nan_to_num(), bsx.nan_to_num()):
+        raise AssertionError(f"{what}: a rerun differs")
+
+
+def _absorb_first_batch(cfg, batches, seed, dev):
+    """Phase 3 (i): the forest absorb on a fresh forest's first batch,
+    every row of every tree in its root (16 leaves of 4,096 rows: the
+    path with several pieces a leaf), against the plain version and
+    rerun."""
+    import torch
+    from repro_torch.core import forest as fr
+    from repro_torch.kernels import qo_update_leaves
+    trees = fr.init_forest(cfg, seed, device=dev)["trees"]
+    Xk, yk = batches[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    w = torch.randint(0, 7, (T * B,), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.float32)
+    gl = torch.arange(T, device=dev, dtype=torch.int32).repeat_interleave(B) \
+        * M
+    fold = lambda a: a.reshape((T * M,) + a.shape[2:])
+    radius, origin = fold(trees["ao_radius"]), fold(trees["ao_origin"])
+
+    def tables():
+        return ({k: fold(v).clone() for k, v in trees["ao_y"].items()},
+                fold(trees["ao_sum_x"]).clone())
+
+    rows = qo_update_leaves.sort_rows(gl, T * M)
+    out_k, out_r, out_p = tables(), tables(), tables()
+    qo_update_leaves.absorb_kernel(*out_k, radius, origin, gl, Xk, yk, w,
+                                   rows)
+    qo_update_leaves.absorb_kernel(*out_r, radius, origin, gl, Xk, yk, w,
+                                   rows)
+    qo_update_leaves.absorb_plain(*out_p, radius, origin, gl, Xk, yk, w)
+    if not torch.equal(out_k[0]["n"], out_p[0]["n"]):
+        raise AssertionError("qo_update_leaves (first batch): n differs "
+                             "from the plain version")
+    err = max(_close(out_k[0][k], out_p[0][k],
+                     f"qo_update_leaves (first batch) {k}")
+              for k in ("mean", "m2"))
+    err = max(err, _close(out_k[1], out_p[1],
+                          "qo_update_leaves (first batch) sum_x"))
+    _tables_equal(out_k, out_r, "qo_update_leaves (first batch)")
+    scratch = tables()
+    ms = _time_ms(lambda: qo_update_leaves.absorb_kernel(
+        *scratch, radius, origin, gl, Xk, yk, w,
+        qo_update_leaves.sort_rows(gl, T * M)))
+    print(f"[3] qo_update_leaves, a fresh forest's first batch ({T} roots "
+          f"of {B} rows, {B // qo_update_leaves.PIECE_ROWS} pieces each): "
+          f"n exact, max abs err {err:.3g}, rerun bitwise equal, "
+          f"{ms:.4f} ms a call with its sort", flush=True)
 
 
 def _sketch_compact_row(scfg, sbatches, seed, dev):
@@ -329,6 +424,21 @@ def _qo_rows(seed, dev):
     out_k = qo_update.update_kernel(*args)
     out_p = qo_update.update_plain(*(a.double() for a in args))
     err = _check_qo_update(out_k, out_p, table, x, y, w, "qo_update")
+    if not all(torch.equal(a, b) for a, b in
+               zip(out_k, qo_update.update_kernel(*args))):
+        raise AssertionError("qo_update: a rerun differs")
+    # (ii) every row in one bin: x constant
+    xc = torch.full_like(x, float(table["origin"]))
+    one = (*_qo_planes(table), table["radius"], table["origin"], xc, y, w)
+    one_k = qo_update.update_kernel(*one)
+    _check_qo_update(one_k, qo_update.update_plain(*(a.double() for a in one)),
+                     table, xc, y, w, "qo_update (one bin)")
+    if not all(torch.equal(a, b) for a, b in
+               zip(one_k, qo_update.update_kernel(*one))):
+        raise AssertionError("qo_update (one bin): a rerun differs")
+    one_ms = _time_ms(lambda: qo_update.update_kernel(*one))
+    print(f"[3] qo_update: {QO_ROWS} rows in one bin: n exact, rerun "
+          f"bitwise equal, {one_ms:.4f} ms a call", flush=True)
     bound, by = _bound(QO_ROWS * 12 + QO_BINS * 16 * 2 + 8, QO_ROWS * 20)
     rows = [dict(
         name="qo_update", route="cuda", source="src/repro_torch/csrc/qo_update.cu",
@@ -336,8 +446,10 @@ def _qo_rows(seed, dev):
         ms=_time_ms(lambda: qo_update.update_kernel(*args)),
         plain_ms=_time_ms(lambda: qo_update.update_plain(*args)),
         bound_ms=bound, bound_by=by, library_ms=None)]
+    dev_ms = _device_ms(lambda: qo_update.update_kernel(*args))
     print(f"[3] qo_update: C={QO_BINS}, N={QO_ROWS}, n exact, max abs err "
-          f"{err:.3g}", flush=True)
+          f"{err:.3g}, rerun bitwise equal; device {dev_ms:.4f} ms a call "
+          f"(bound {bound:.5f} ms)", flush=True)
     planes = [a.contiguous() for a in out_k]
     k, p = qo_query.best_kernel(*planes), qo_query.best_plain(*planes)
     err = _check_qo_query(planes, k, p, "qo_query")
@@ -558,7 +670,7 @@ def _qo_merge_row(cfg, batches, seed, dev):
           f"plain version", flush=True)
     row = dict(
         name="qo_merge", route="cuda", source="src/repro_torch/csrc/qo_merge.cu",
-        replaces="src/repro/kernels/qo_merge.py:77", max_abs_err=err,
+        replaces="src/repro/kernels/qo_merge.py:83", max_abs_err=err,
         ms=_time_ms(lambda: qo_merge.merge_kernel(*planes)),
         plain_ms=_time_ms(lambda: qo_merge.merge_plain(*planes)),
         bound_ms=bound, bound_by=by, library_ms=None)
@@ -838,7 +950,14 @@ def main(argv=None) -> int:
 
     ty_k, tsx_k = tables()
     ty_p, tsx_p = tables()
-    qo_update_leaves.absorb_kernel(ty_k, tsx_k, radius, origin, gl, Xk, yk, w)
+    ty_r, tsx_r = tables()
+    rows_k = qo_update_leaves.sort_rows(gl, T * M)
+    qo_update_leaves.absorb_kernel(ty_k, tsx_k, radius, origin, gl, Xk, yk, w,
+                                   rows_k)
+    qo_update_leaves.absorb_kernel(ty_r, tsx_r, radius, origin, gl, Xk, yk, w,
+                                   rows_k)
+    _tables_equal((ty_k, tsx_k), (ty_r, tsx_r), "qo_update_leaves")
+    del ty_r, tsx_r
     qo_update_leaves.absorb_plain(ty_p, tsx_p, radius, origin, gl, Xk, yk, w)
     if not torch.equal(ty_k["n"], ty_p["n"]):
         raise AssertionError("qo_update_leaves: n differs from the plain "
@@ -858,12 +977,17 @@ def main(argv=None) -> int:
         replaces="src/repro/kernels/qo_update_leaves.py:187",
         max_abs_err=err,
         ms=_time_ms(lambda: qo_update_leaves.absorb_kernel(
-            *scratch_k, radius, origin, gl, Xk, yk, w)),
+            *scratch_k, radius, origin, gl, Xk, yk, w,
+            qo_update_leaves.sort_rows(gl, T * M))),
         plain_ms=_time_ms(lambda: qo_update_leaves.absorb_plain(
             *scratch_p, radius, origin, gl, Xk, yk, w)),
         bound_ms=bound, bound_by=by, library_ms=None))
+    dev_ms = _device_ms(lambda: qo_update_leaves.absorb_kernel(
+        *scratch_k, radius, origin, gl, Xk, yk, w, rows_k))
     print(f"[3] qo_update_leaves: n exact, {touched} leaves touched, "
-          f"max abs err {err:.3g}", flush=True)
+          f"max abs err {err:.3g}, rerun bitwise equal; device "
+          f"{dev_ms:.4f} ms a launch (bound {bound:.5f} ms)", flush=True)
+    _absorb_first_batch(cfg, batches, args.seed, dev)
 
     # the attempt set the main path would query after absorbing this batch
     batch_leaf = ht.segment_stats(yk.repeat(T), gl, T * M, w)

@@ -195,29 +195,35 @@ def _fold(a, T, M):
 def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
     """Route all T members and reduce the batch's per-leaf target stats.
 
-    One folded route and one flat segment reduction over the global leaf
-    ids ``t*M + leaf``.  w: (T, B).  Returns ``(gl, leaf, batch_leaf)``:
-    the (T*B,) folded ids, the (T, B) per-tree ids and the (T, M) Stats
-    of the batch -- the shard-local quantities of the data-parallel
-    protocol, which accumulates them in a delta instead of the trees."""
+    One folded route, one sort of the global leaf ids ``t*M + leaf`` and
+    one flat segment reduction over them.  w: (T, B).  Returns ``(gl,
+    leaf, batch_leaf, rows)``: the (T*B,) folded ids, the (T, B) per-tree
+    ids, the (T, M) Stats of the batch -- the shard-local quantities of
+    the data-parallel protocol, which accumulates them in a delta instead
+    of the trees -- and the ``(order, offsets)`` of the sort, which the
+    absorb walks again."""
     T, M = trees["feature"].shape
     leaf = _route_all(cfg, trees, X)
     gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None] * M
           + leaf).reshape(-1)
-    batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1))
-    return gl, leaf, {k: v.reshape(T, M) for k, v in batch_leaf.items()}
+    rows = kops.sort_rows(gl, T * M)
+    batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1),
+                                  rows)
+    return (gl, leaf, {k: v.reshape(T, M) for k, v in batch_leaf.items()},
+            rows)
 
 
 def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
-                         X, y, w):
+                         X, y, w, rows=None):
     """Absorb a routed batch into ANY (T, M, F, C) table set in one pass.
 
     ``ao_y``/``ao_sum_x`` are the target (the trees' own tables, or a
     shard's delta); the quantization grid (radius, origin) always comes
     from ``trees``, so every shard bins alike and the deltas stay
-    mergeable.  gl: (T*B,) folded ids from :func:`_fused_route_stats`;
-    w: (T, B).  Returns ``(ao_y, ao_sum_x)``: the QO tables are updated
-    in place and returned; under the sketch observer new planes."""
+    mergeable.  gl: (T*B,) folded ids and rows their sort, both from
+    :func:`_fused_route_stats`; w: (T, B).  Returns ``(ao_y, ao_sum_x)``:
+    the QO tables are updated in place and returned; under the sketch
+    observer new planes."""
     T, M = trees["feature"].shape
     flat = lambda a: _fold(a, T, M)
     if cfg.tree.observer_backend == "sketch":
@@ -229,7 +235,7 @@ def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
         return {k: unflat(v) for k, v in fy.items()}, unflat(fsx)
     kops.forest_update({k: flat(v) for k, v in ao_y.items()}, flat(ao_sum_x),
                        flat(trees["ao_radius"]), flat(trees["ao_origin"]),
-                       gl, X, y, w.reshape(-1))
+                       gl, X, y, w.reshape(-1), rows=rows)
     return ao_y, ao_sum_x
 
 
@@ -238,14 +244,14 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
     absorb (QO tables in place; sketch planes rebound), attempt
     (``ht.attempt_trees``, which the data-parallel sync runs on merged
     statistics).  w: (T, B) sample weights."""
-    gl, _, batch_leaf = _fused_route_stats(cfg, trees, X, y, w)
+    gl, _, batch_leaf, rows = _fused_route_stats(cfg, trees, X, y, w)
     trees = dict(trees,
                  ystats=stats.merge(trees["ystats"], batch_leaf),
                  seen_since_attempt=trees["seen_since_attempt"]
                  + batch_leaf["n"])
     ao_y, ao_sum_x = _fused_absorb_tables(cfg, trees["ao_y"],
                                           trees["ao_sum_x"], trees, gl, X, y,
-                                          w)
+                                          w, rows)
     trees = dict(trees, ao_y=ao_y, ao_sum_x=ao_sum_x)
     return ht.attempt_trees(cfg.tree, trees, feat_mask)
 

@@ -170,12 +170,16 @@ def predict(cfg: HTRConfig, state: TreeState, X, *, device=None):
     return state["ystats"]["mean"][leaf.long()]
 
 
-def segment_stats(vals_y, seg, num: int, w):
+def segment_stats(vals_y, seg, num: int, w, rows=None):
     """Exact per-segment weighted (n, mean, M2) with the two-pass residual
     M2.  Rows are ordered by segment (stable sort) and each sum runs over
     one segment's contiguous run, so the result does not depend on
-    atomics (bitwise repeatable on the card)."""
-    order, offsets = kops.sort_rows(seg, num)
+    atomics (bitwise repeatable on the card).  ``rows``: the ``(order,
+    offsets)`` of ``kops.sort_rows(seg, num)`` when the caller has sorted
+    already.  A segment id outside [0, num) raises: the runs then cover
+    fewer rows than there are, which ``segment_reduce``'s own length
+    check refuses (no host read besides its own)."""
+    order, offsets = kops.sort_rows(seg, num) if rows is None else rows
     order = order.long()
     lengths = offsets[1:] - offsets[:-1]
     ws, ys = w[order], vals_y[order]
@@ -336,7 +340,8 @@ def update_local(cfg: HTRConfig, state: TreeState, X, y, w=None, *,
     X, y, w = as_batch(X, y, w, dev)
     M = cfg.max_nodes
     leaf = _route(cfg, state, X)                                   # (B,)
-    batch_leaf = segment_stats(y, leaf, M, w)
+    rows = kops.sort_rows(leaf, M)      # one sort: stats and absorb share it
+    batch_leaf = segment_stats(y, leaf, M, w, rows)
     state = dict(state,
                  ystats=stats.merge(state["ystats"], batch_leaf),
                  seen_since_attempt=state["seen_since_attempt"]
@@ -346,7 +351,7 @@ def update_local(cfg: HTRConfig, state: TreeState, X, y, w=None, *,
                                             leaf, X, y, w)
         return dict(state, ao_y=ao_y, ao_sum_x=ao_sum_x)
     kops.forest_update(state["ao_y"], state["ao_sum_x"], state["ao_radius"],
-                       state["ao_origin"], leaf, X, y, w)
+                       state["ao_origin"], leaf, X, y, w, rows=rows)
     return state
 
 

@@ -64,20 +64,24 @@ def forest_bin_ids(ao_radius, ao_origin, leaf, X, n_bins: int):
                                           X, n_bins)
 
 
-def forest_update(ao_y, ao_sum_x, ao_radius, ao_origin, leaf, X, y, w=None):
+def forest_update(ao_y, ao_sum_x, ao_radius, ao_origin, leaf, X, y, w=None,
+                  rows=None):
     """Absorb a routed batch into every (leaf, feature) QO table, IN PLACE.
 
     ao_y: Stats dict of (N, F, C); ao_sum_x: (N, F, C); ao_radius /
     ao_origin: (N, F); X: (B, F); y: (B,); leaf: (R,) table ids of R
     folded rows, R a multiple of B (row r reads ``X[r % B]``, ``y[r % B]``
     -- a forest passes its T*B folded rows without tiling X); w: optional
-    (R,) sample weights.  Returns ``(ao_y, ao_sum_x)``, the same tensors.
+    (R,) sample weights; rows: optional ``(order, offsets)`` of
+    :func:`sort_rows` for ``leaf`` when the caller sorted already (the
+    kernel walks them; the plain version ignores them).  Returns
+    ``(ao_y, ao_sum_x)``, the same tensors.
     """
     leaf = leaf.reshape(-1)
     w = torch.ones(leaf.shape, dtype=torch.float32, device=X.device) \
         if w is None else w.reshape(-1)
     qo_update_leaves.absorb(ao_y, ao_sum_x, ao_radius, ao_origin, leaf,
-                            X, y, w)
+                            X, y, w, rows)
     return ao_y, ao_sum_x
 
 

@@ -13,9 +13,10 @@ and ``origin``) absorbs N weighted rows:
 Out of place on both paths: the result is four new planes.
 :func:`update` launches ``csrc/qo_update.cu`` on a CUDA tensor and runs
 :func:`update_plain` (the reference's ``core/qo.py::update``: one segment
-reduction over the whole batch) on a CPU one.  The TPU kernel instead
-Chan-merges 1024-row tiles one after another; the three differ by f32
-rounding only.
+reduction over the whole batch) on a CPU one.  The kernel cuts the rows
+into :func:`pieces` contiguous pieces, reduces each with its own two-pass
+M2 and Chan-merges them in piece order; the TPU kernel Chan-merges
+1024-row tiles one after another.  The three differ by f32 rounding only.
 """
 from __future__ import annotations
 
@@ -28,11 +29,17 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 from repro_torch.kernels.qo_update_leaves import bin_ids_plain
 
-__all__ = ["update_plain", "update_kernel", "update", "MAX_BINS"]
+__all__ = ["update_plain", "update_kernel", "update", "pieces", "MAX_BINS",
+           "PIECES", "MIN_PIECE_ROWS"]
 
-#: The bin-id kernel keeps one block's histogram (C int32 counts) in
-#: shared memory, within the 227 KB a block can use.
+#: Largest table the port takes; the kernel tiles the bins of a piece over
+#: a grid dimension, 1024 bins a block, so a block's tables stay in shared
+#: memory at every C up to this.
 MAX_BINS = 49152
+#: Pieces of the rows: two blocks on each of the H100's 132 SMs.
+PIECES = 264
+#: Fewer pieces when each would hold fewer rows than this.
+MIN_PIECE_ROWS = 1024
 
 
 def update_plain(n, mean, m2, sum_x, radius, origin, x, y, w):
@@ -56,18 +63,24 @@ def update_plain(n, mean, m2, sum_x, radius, origin, x, y, w):
     return merged["n"], merged["mean"], merged["m2"], sum_x + sx_b
 
 
+def pieces(N: int):
+    """``(G, piece_rows)``: the kernel's cut of N rows into G contiguous
+    pieces of ``piece_rows`` rows (a multiple of 4, so every piece starts
+    on a 16-byte boundary; the last piece may be shorter)."""
+    if N == 0:
+        return 0, 0
+    per = max(MIN_PIECE_ROWS, -(-N // PIECES))
+    per = -(-per // 4) * 4
+    return -(-N // per), per
+
+
 @functools.lru_cache(maxsize=None)
-def _launchers():
-    lib = _build.library("qo_update")
-    bins = lib.qo_update_bins_launch
-    bins.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                             ctypes.c_void_p]
-    bins.restype = ctypes.c_int
-    reduce_ = lib.qo_update_reduce_launch
-    reduce_.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int,
-                                                 ctypes.c_void_p]
-    reduce_.restype = ctypes.c_int
-    return bins, reduce_
+def _launcher():
+    fn = _build.library("qo_update").qo_update_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 2 \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def update_kernel(n, mean, m2, sum_x, radius, origin, x, y, w):
@@ -90,23 +103,15 @@ def update_kernel(n, mean, m2, sum_x, radius, origin, x, y, w):
         raise ValueError("qo_update: at most 2^31 - 1 rows a call")
     if not 0 < C <= MAX_BINS:
         raise ValueError(f"qo_update: C = {C} bins, expected 1..{MAX_BINS}")
-    bins_fn, reduce_fn = _launchers()
+    G, per = pieces(N)
+    partial = torch.empty(max(G, 1) * 4 * C, dtype=torch.float32, device=dev)
+    out = torch.empty((4, C), dtype=torch.float32, device=dev).unbind(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bins = torch.empty(N, dtype=torch.int32, device=dev)
-    counts = torch.zeros(C, dtype=torch.int32, device=dev)
-    _build.check(bins_fn(x.data_ptr(), radius.data_ptr(), origin.data_ptr(),
-                         bins.data_ptr(), counts.data_ptr(), N, C, stream),
-                 "qo_update")
-    # group the rows by bin, row order kept within a bin (radix sort)
-    order = torch.sort(bins, stable=True).indices.to(torch.int32)
-    offsets = torch.zeros(C + 1, dtype=torch.int32, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0)
-    out = [torch.empty(C, dtype=torch.float32, device=dev) for _ in range(4)]
-    _build.check(reduce_fn(order.data_ptr(), offsets.data_ptr(), x.data_ptr(),
-                           y.data_ptr(), w.data_ptr(), n.data_ptr(),
-                           mean.data_ptr(), m2.data_ptr(), sum_x.data_ptr(),
-                           *(o.data_ptr() for o in out), C, stream),
-                 "qo_update")
+    _build.check(_launcher()(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), radius.data_ptr(),
+        origin.data_ptr(), n.data_ptr(), mean.data_ptr(), m2.data_ptr(),
+        sum_x.data_ptr(), partial.data_ptr(), *(o.data_ptr() for o in out),
+        N, per, G, C, stream), "qo_update")
     _build.LAUNCHES["qo_update"] += 1
     return tuple(out)
 

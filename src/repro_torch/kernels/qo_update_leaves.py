@@ -15,7 +15,12 @@ planes hold 268 MB; an out-of-place copy doubles that), so a caller that
 needs the old tables clones them first.  :func:`absorb` launches
 ``csrc/qo_update_leaves.cu`` on a CUDA tensor and runs
 :func:`absorb_plain` (the reference's ``ops._forest_update_jnp``) on a
-CPU one.
+CPU one.  The kernel walks the rows sorted by leaf: a caller that sorted
+them already (the step's segment statistics do) passes ``rows=(order,
+offsets)`` from :func:`sort_rows`, and the wrapper sorts only when it is
+not given them.  Each leaf's run is cut into pieces of at most
+:data:`PIECE_ROWS` rows; a leaf of several pieces merges its pieces'
+statistics in piece order (the TPU kernel merges 256-row tiles in order).
 """
 from __future__ import annotations
 
@@ -28,7 +33,11 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 
 __all__ = ["xla_int32", "bin_ids_plain", "absorb_plain", "absorb_kernel",
-           "absorb", "sort_rows"]
+           "absorb", "sort_rows", "PIECE_ROWS"]
+
+#: Rows of a piece: ``PIECE_ROWS`` in ``csrc/qo_update_leaves.cu`` (the
+#: launcher checks that the two agree).
+PIECE_ROWS = 128
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
@@ -90,30 +99,44 @@ def absorb_plain(tab_y, tab_sum_x, radius, origin, gl, X, y, w) -> None:
 
 def sort_rows(gl, n_leaves: int):
     """Folded rows ordered by leaf (stable) and the (n_leaves + 1,) segment
-    offsets of each leaf's run: the layout the absorb kernel walks."""
-    order = torch.sort(gl, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(gl, minlength=n_leaves)
-    if counts.numel() != n_leaves:
-        raise ValueError(f"leaf ids reach {counts.numel() - 1}, the table "
-                         f"axis holds {n_leaves}")
-    offsets = torch.zeros(n_leaves + 1, dtype=torch.int32, device=gl.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return order, offsets
+    offsets of each leaf's run: the layout the absorb kernel walks.
+
+    No host read: the offsets come from the sorted ids by binary search.
+    A row whose id lies outside [0, n_leaves) belongs to no run (its
+    position is before ``offsets[0]`` or from ``offsets[-1]`` on), so
+    ``offsets[-1] - offsets[0]`` falls short of the row count exactly when
+    some id is out of range."""
+    keys, order = torch.sort(gl, stable=True)
+    bounds = torch.arange(n_leaves + 1, dtype=keys.dtype, device=keys.device)
+    offsets = torch.searchsorted(keys, bounds, out_int32=True)
+    return order.to(torch.int32), offsets
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.library("qo_update_leaves").qo_update_leaves_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = _build.library("qo_update_leaves")
+    lib.qo_update_leaves_launch.argtypes = [ctypes.c_void_p] * 13 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.qo_update_leaves_launch.restype = ctypes.c_int
+    lib.qo_update_leaves_feature_group.argtypes = [ctypes.c_int] * 2
+    lib.qo_update_leaves_feature_group.restype = ctypes.c_int
+    if lib.qo_update_leaves_piece_rows() != PIECE_ROWS:
+        raise RuntimeError("qo_update_leaves: PIECE_ROWS differs between "
+                           "the module and its CUDA source")
+    return lib
 
 
-def absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w) -> None:
-    """Launch ``csrc/qo_update_leaves.cu`` (in place on the four planes)."""
+def absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w,
+                  rows=None) -> None:
+    """Launch ``csrc/qo_update_leaves.cu`` (in place on the four planes).
+
+    ``rows``: the ``(order, offsets)`` of :func:`sort_rows` for ``gl``, if
+    the caller has them; rows whose ids lie outside [0, N) are then left
+    out (the step's segment statistics raise on them).  Without ``rows``
+    the wrapper sorts and raises on such ids itself, with a host read."""
     N, F, C = tab_sum_x.shape
     B = X.shape[0]
+    n_rows = gl.shape[0]
     dev = X.device
     tensors = {"n": tab_y["n"], "mean": tab_y["mean"], "m2": tab_y["m2"],
                "sum_x": tab_sum_x, "radius": radius, "origin": origin,
@@ -123,26 +146,58 @@ def absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w) -> None:
                 or not t.is_contiguous():
             raise ValueError(f"qo_update_leaves: {name} must be a "
                              f"contiguous float32 tensor on {dev}")
-    if gl.device != dev or gl.shape != w.shape or gl.shape[0] % max(B, 1):
+    if gl.device != dev or gl.shape != w.shape or n_rows % max(B, 1):
         raise ValueError("qo_update_leaves: leaf ids and weights must be "
                          f"(T*B,) on {dev} with B = {B}")
     if radius.shape != (N, F) or origin.shape != (N, F) or y.shape != (B,):
         raise ValueError("qo_update_leaves: radius/origin must be (N, F) "
                          "and y (B,)")
-    order, offsets = sort_rows(gl, N)
+    if n_rows >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError("qo_update_leaves: at most 2^31 - 1 rows and "
+                         "tables a call")
+    if rows is None:
+        rows = sort_rows(gl, N)
+        # a host read, off the main path (which passes rows)
+        if int(rows[1][-1] - rows[1][0]) != n_rows:
+            raise ValueError(f"qo_update_leaves: leaf ids outside [0, {N})")
+    order, offsets = rows
+    for name, t, shape in (("order", order, (n_rows,)),
+                           ("offsets", offsets, (N + 1,))):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"qo_update_leaves: {name} must be a "
+                             f"contiguous int32 {shape} tensor on {dev}")
+    if n_rows == 0 or F == 0 or N == 0:
+        return
+    lib = _library()
+    group = lib.qo_update_leaves_feature_group(F, C)
+    if group == 0:
+        raise ValueError(f"qo_update_leaves: C = {C} bins of one feature "
+                         "outgrow a block's shared memory")
+    # the piece list (int4 entries), each long leaf's arrival count, the
+    # counts and the ticket; scratch for the pieces of long leaves
+    pieces = -(-n_rows // PIECE_ROWS) + min(N, n_rows)
+    slots = 2 * -(-n_rows // PIECE_ROWS) if n_rows > PIECE_ROWS else 0
+    plan = torch.empty(4 * pieces + slots + 3, dtype=torch.int32,
+                       device=dev)
+    scratch = torch.empty(max(slots * 4 * F * C, 1), dtype=torch.float32,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher()(order.data_ptr(), offsets.data_ptr(), X.data_ptr(),
-                     y.data_ptr(), w.data_ptr(), radius.data_ptr(),
-                     origin.data_ptr(), tab_y["n"].data_ptr(),
-                     tab_y["mean"].data_ptr(), tab_y["m2"].data_ptr(),
-                     tab_sum_x.data_ptr(), N, B, F, C, stream)
+    rc = lib.qo_update_leaves_launch(
+        order.data_ptr(), offsets.data_ptr(), X.data_ptr(), y.data_ptr(),
+        w.data_ptr(), radius.data_ptr(), origin.data_ptr(),
+        tab_y["n"].data_ptr(), tab_y["mean"].data_ptr(),
+        tab_y["m2"].data_ptr(), tab_sum_x.data_ptr(), plan.data_ptr(),
+        scratch.data_ptr(), N, n_rows, B, F, C, group, stream)
     _build.check(rc, "qo_update_leaves")
     _build.LAUNCHES["qo_update_leaves"] += 1
 
 
-def absorb(tab_y, tab_sum_x, radius, origin, gl, X, y, w) -> None:
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
+def absorb(tab_y, tab_sum_x, radius, origin, gl, X, y, w,
+           rows=None) -> None:
+    """The plain version on a CPU tensor (``rows`` unused), else the
+    kernel (or a raise)."""
     if X.device.type == "cpu":
         absorb_plain(tab_y, tab_sum_x, radius, origin, gl, X, y, w)
     else:
-        absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w)
+        absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w, rows)

@@ -133,11 +133,11 @@ def _dp_local_shard(cfg: fr.ForestConfig, forest, delta, X, y, w):
     weights.  Returns the new delta (the QO tables are the given ones,
     updated in place)."""
     trees = forest["trees"]
-    gl, leaf, batch_leaf = fr._fused_route_stats(cfg, trees, X, y, w)
+    gl, leaf, batch_leaf, rows = fr._fused_route_stats(cfg, trees, X, y, w)
     yhat = torch.gather(trees["ystats"]["mean"], 1, leaf.long())
     err = stats.from_batch((yhat - y[None, :]) ** 2, dim=1)       # (T,)
     ao_y, ao_sum_x = fr._fused_absorb_tables(
-        cfg, delta["ao_y"], delta["ao_sum_x"], trees, gl, X, y, w)
+        cfg, delta["ao_y"], delta["ao_sum_x"], trees, gl, X, y, w, rows)
     return {
         "ystats": stats.merge(delta["ystats"], batch_leaf),
         "ao_y": ao_y,
