@@ -37,7 +37,12 @@ Phases:
    CUDA-event-timed repeats); both absorbs run twice and the runs
    compared bitwise, the forest absorb also on a fresh forest's first batch (every
    row in one of the 16 roots, 4,096 rows a leaf: several pieces a leaf),
-   the single-table absorb also with all 1e6 rows in one bin;
+   the single-table absorb also with all 1e6 rows in one bin; the sketch
+   compaction (sort, rank and reduce fused) on the sketch forest's merge,
+   one launch and no other device op a call, rerun bitwise, and the whole
+   compaction stage timed beside the unfused stage's record; the batched
+   query on the QO forest's attempt set and on the sketch forest's
+   (C = K = 16), rerun bitwise;
 4. QO forest end to end: 32 batches through ``forest.update`` with the
    launch counts set to 0 just before and read just after; every kernel
    of the path must have run;
@@ -45,8 +50,10 @@ Phases:
 6. serving: ``freeze`` + ``predict_snapshot`` of an 8192-row request equals
    the live ``forest.predict`` bit for bit;
 7. where the time goes: 8 mid-growth steps (after 8 warm-up batches)
-   timed plain and under torch.profiler, printing the device-busy share
-   and the top device kernels and host operations (for both forests);
+   timed plain and under torch.profiler, printing the device-busy share,
+   the port's kernels, the top device kernels and host operations, and
+   the tables each split query covered with its byte bound (for both
+   forests);
 8. sketch forest end to end: 32 batches with counts reset, falling MSE, a
    bitwise rerun, a snapshot serving equal to live ``predict``;
 9. single-table QO: the 18 streams of the §5.1 grid (3 distributions x 3
@@ -94,6 +101,11 @@ QO_BINS, QO_ROWS = 1024, 1_000_000
 DP_SHARDS, DP_SYNC, DP_SKETCH_SHARDS = 4, 2, 2
 WARM_BATCHES, STREAM_BATCHES, SERVE_ROWS = 8, 32, 8192
 TOL = 1e-4
+# The compaction stage before its fusion (cat, sort, gathers, cumsum, ids,
+# then a reduce kernel) at phase 3's shape, ms a call and device ms:
+# ``sketch.merge_planes`` of the tree before the fused kernel, timed as
+# phase 3 times it, NVIDIA H100 80GB HBM3, 700 W.
+PARENT_STAGE_MS = (3.2984, 3.2929)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 
@@ -136,18 +148,24 @@ def _time_ms(fn, reps=20, warm=3):
 
 def _device_ms(fn, reps=10):
     """Device time of one call of ``fn``, in ms: the profiler's CUDA
-    kernel time over ``reps`` calls (after a warm-up call)."""
+    kernel time over ``reps`` calls (after a warm-up call).  A window in
+    which the profiler recorded fewer device events than calls (it can
+    drop a window's activity) is profiled again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in events) >= reps:
+            return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    raise AssertionError("the profiler recorded no device time for a "
+                         f"window of {reps} calls, three times")
 
 
 def _bound(nbytes, flops):
@@ -183,6 +201,55 @@ def _profile(cfg, batches, seed, dev, tag="[7]"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(prof, len(window), wall, plain_wall, "mid-growth steps", tag)
+    queried, left_out = _queried_tables(cfg, batches, seed, dev)
+    slots = cfg.tree.observer_bins()
+    tables = statistics.mean(queried)
+    bound, _ = _bound(tables * (slots * 16 + 8) + tables / F * 4,
+                      tables * slots * 30)
+    print(f"{tag} qo_query_batched: {len(queried)} launches of "
+          f"{tables:.0f} tables of C={slots} on average "
+          f"({min(queried)}-{max(queried)}), bound {bound:.5f} ms a launch"
+          + (f" ({left_out} steps with a drift swap left out)"
+             if left_out else ""), flush=True)
+
+
+def _queried_tables(cfg, batches, seed, dev):
+    """The tables each split query of the profiled window covers, read
+    from an unprofiled replay of it (the steps are deterministic): a leaf
+    attempted when its grace count plus the weight the step brought it
+    (the growth of its target count) reached the grace period.  A step
+    that swaps a member for drift is left out (the fresh member no longer
+    shows what its step brought).  Returns (tables a launch, steps left
+    out); checked against the launch count."""
+    from repro_torch.core import forest as fr
+    from repro_torch.core import hoeffding as ht
+    from repro_torch.kernels import _build
+    state = fr.init_forest(cfg, seed, device=dev)
+    for Xb, yb in batches[:WARM_BATCHES]:
+        state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+    queried, left_out = [], 0
+    launches = _build.LAUNCHES["qo_query_batched"]
+    for Xb, yb in batches[WARM_BATCHES:2 * WARM_BATCHES]:
+        t = state["trees"]
+        before = {k: t[k].clone() for k in ("is_leaf", "seen_since_attempt",
+                                            "depth", "n_nodes")}
+        n0 = t["ystats"]["n"].clone()
+        state, aux = fr.update(cfg, state, Xb, yb, device=dev)
+        if bool(aux["drift"].any()):
+            left_out += 1
+            continue
+        before["seen_since_attempt"] = before["seen_since_attempt"] \
+            + (state["trees"]["ystats"]["n"] - n0)
+        k = int((ht.attempt_mask(cfg.tree, before)
+                 & (before["n_nodes"][:, None] + 1 < M)).sum())
+        if k:
+            queried.append(k * F)
+    ran = _build.LAUNCHES["qo_query_batched"] - launches
+    if not queried or not len(queried) <= ran <= len(queried) + left_out:
+        raise AssertionError(f"split queries: {ran} launches, the replay "
+                             f"read {len(queried)} attempt sets and left "
+                             f"{left_out} steps out")
+    return queried, left_out
 
 
 def _report(prof, n, wall, plain_wall, what, tag):
@@ -200,8 +267,9 @@ def _report(prof, n, wall, plain_wall, what, tag):
           f"busy {busy / n:.3f} ms ({busy / (wall * 1e3):.1%} of wall)")
     calls = {}
     for e in kernels:
-        if e.key.startswith(("qo_", "sketch_")):
-            name = e.key.split('(')[0]
+        key = e.key[5:] if e.key.startswith("void ") else e.key
+        if key.startswith(("qo_", "sketch_")):
+            name = key.split('(')[0]
             print(f"{tag} device time of {name}: "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms per "
                   f"launch, {e.count / n:.1f} launches each")
@@ -289,15 +357,16 @@ def _absorb_first_batch(cfg, batches, seed, dev):
           f"{ms:.4f} ms a call with its sort", flush=True)
 
 
-def _sketch_compact_row(scfg, sbatches, seed, dev):
-    """Phase 3: the compaction kernel on the tables of a sketch forest
-    after 8 learned batches, absorbing the next batch."""
+def _sketch_inputs(scfg, sbatches, seed, dev):
+    """The sketch forest after 8 learned batches, absorbing the next one:
+    its trees, the batch's folded leaf ids ``gl``, weights ``w`` and
+    targets ``yk``, and the two (T*M*F, K) plane sets its compaction
+    merges (``old``: the tables, ``new``: the batch's pre-sketch)."""
     import torch
     from repro_torch.core import forest as fr
     from repro_torch.core import hoeffding as ht
     from repro_torch.core import sketch as sk
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import sketch_compact
     state = fr.init_forest(scfg, seed, device=dev)
     for Xb, yb in sbatches[:WARM_BATCHES]:
         state, _ = fr.update(scfg, state, Xb, yb, device=dev)
@@ -313,34 +382,153 @@ def _sketch_compact_row(scfg, sbatches, seed, dev):
                       dtype=torch.int32).to(torch.float32)
     gl = (torch.arange(T, device=dev, dtype=torch.int32)[:, None] * M
           + leaf).reshape(-1)
-    fold = lambda a: a.reshape((T * M,) + a.shape[2:])
-    old = [fold(trees["ao_y"][k]) for k in ("n", "mean", "m2")] \
-        + [fold(trees["ao_sum_x"])]
-    new = sk.from_batch_planes(gl, Xk, yk, w, T * M, KS)
-    cat = [torch.cat([a, b], -1) for a, b in zip(old, new)]
-    planes = [a.contiguous() for a in sk.sort_planes(*cat)]
-    bucket = sk._bucket_ids(planes[0], KS)
-    out_k = sketch_compact.bucket_reduce_kernel(*planes, bucket, KS)
-    out_p = sketch_compact.bucket_reduce_plain(*planes, bucket, KS)
+    flat = lambda a: a.reshape(-1, KS).contiguous()
+    old = [flat(trees["ao_y"][k]) for k in ("n", "mean", "m2")] \
+        + [flat(trees["ao_sum_x"])]
+    new = [flat(a) for a in sk.from_batch_planes(gl, Xk, yk, w, T * M, KS)]
+    return dict(trees=trees, gl=gl, w=w, yk=yk, old=old, new=new)
+
+
+def _device_kernels(fn):
+    """Names of the device operations one call of ``fn`` runs (a window
+    the profiler recorded nothing of is profiled again, up to three
+    times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+def _sketch_compact_row(sin):
+    """Phase 3: the fused compaction kernel (sort, rank, reduce) against
+    ``compact_plain`` on the sketch forest's merge, and the whole stage
+    timed beside the unfused one's record.  Returns the kernel's row and
+    output."""
+    import torch
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import _build, sketch_compact
+    old, new = sin["old"], sin["new"]
+    before = _build.LAUNCHES["sketch_compact"]
+    ops = _device_kernels(lambda: sketch_compact.compact_kernel(old, KS, new))
+    if _build.LAUNCHES["sketch_compact"] != before + 1 or len(ops) != 1:
+        raise AssertionError(f"sketch_compact: a call ran {ops} and "
+                             f"{_build.LAUNCHES['sketch_compact'] - before} "
+                             f"launches, not the kernel alone")
+    out_k = sketch_compact.compact_kernel(old, KS, new)
+    out_p = sketch_compact.compact_plain(old, KS, new)
     if not torch.equal(out_k[0], out_p[0]):
         raise AssertionError("sketch_compact: n differs from the plain "
                              "version")
     err = max(_close(a, b, f"sketch_compact {name}") for a, b, name in
               zip(out_k[1:], out_p[1:], ("mean", "m2", "sum_x")))
-    R, J = T * M * F, 2 * KS
-    bound, by = _bound(5 * R * J * 4 + 4 * R * KS * 4, R * J * 12)
-    print(f"[3] sketch_compact: R={R} rows, J={J} -> K={KS}, n exact, "
-          f"max abs err {err:.3g}", flush=True)
-    return dict(
+    if not all(torch.equal(a, b) for a, b in
+               zip(out_k, sketch_compact.compact_kernel(old, KS, new))):
+        raise AssertionError("sketch_compact: a rerun differs")
+    R, J = old[0].shape[0], 2 * KS
+    bound, by = _bound(R * J * 16 + R * KS * 16, R * J * 20)
+    fn = lambda: sketch_compact.compact_kernel(old, KS, new)
+    row = dict(
         name="sketch_compact", route="cuda",
         source="src/repro_torch/csrc/sketch_compact.cu",
         replaces="src/repro/kernels/sketch_compact.py:110",
-        max_abs_err=err,
-        ms=_time_ms(lambda: sketch_compact.bucket_reduce_kernel(
-            *planes, bucket, KS)),
-        plain_ms=_time_ms(lambda: sketch_compact.bucket_reduce_plain(
-            *planes, bucket, KS)),
+        max_abs_err=err, ms=_time_ms(fn),
+        plain_ms=_time_ms(lambda: sketch_compact.compact_plain(old, KS,
+                                                               new)),
         bound_ms=bound, bound_by=by, library_ms=None)
+    dev_ms = _device_ms(fn)
+    # the whole compaction stage of a sketch step, as the main path calls it
+    stage = lambda: sk.merge_planes(*old, *new)
+    stage_ms, stage_dev = _time_ms(stage), _device_ms(stage)
+    print(f"[3] sketch_compact: R={R} rows, J={J} -> K={KS}, one launch "
+          f"and no other device op a call ({ops[0][:40]}), n exact, max abs "
+          f"err {err:.3g}, rerun bitwise equal; device {dev_ms:.4f} ms a "
+          f"launch = {bound / dev_ms:.1%} of its {bound:.5f} ms bound",
+          flush=True)
+    print(f"[3] compaction stage (sketch.merge_planes): {stage_ms:.4f} ms a "
+          f"call, device {stage_dev:.4f} ms; before the fusion (cat, sort, "
+          f"gathers, cumsum, ids and a reduce kernel), timed the same "
+          f"way on that tree: "
+          f"{PARENT_STAGE_MS[0]} ms a call, device {PARENT_STAGE_MS[1]} ms "
+          f"(NVIDIA H100 80GB HBM3, 700 W)", flush=True)
+    return row, out_k
+
+
+def _attempt_rows(cfg, trees, gl, yk, w):
+    """int32 rows of the (T*M) folded leaves the main path would query
+    after absorbing a batch of targets ``yk`` routed to ``gl`` with bagging
+    weights ``w``."""
+    import torch
+    from repro_torch.core import hoeffding as ht
+    from repro_torch.core import stats
+    fold = lambda a: a.reshape((T * M,) + a.shape[2:])
+    batch_leaf = ht.segment_stats(yk.repeat(T), gl, T * M, w)
+    after = dict(trees,
+                 ystats=stats.merge({k: fold(v) for k, v in
+                                     trees["ystats"].items()}, batch_leaf),
+                 seen_since_attempt=fold(trees["seen_since_attempt"])
+                 + batch_leaf["n"],
+                 is_leaf=fold(trees["is_leaf"]), depth=fold(trees["depth"]))
+    attempt = ht.attempt_mask(cfg.tree, after) & (
+        trees["n_nodes"].repeat_interleave(M) + 1 < M)
+    qrows = torch.nonzero(attempt).reshape(-1).to(torch.int32)
+    if qrows.numel() == 0:
+        raise AssertionError("qo_query_batched: no leaf attempts a split")
+    return qrows
+
+
+def _query_row(ty, tsx, qrows, what, timed_plain):
+    """Phase 3: the batched query kernel against the plain version on one
+    attempt set (merit within TOL, a threshold differing only at a
+    near-tie of the plain version's best, a bitwise rerun), timed.
+    Returns the kernel's row (``plain_ms`` only if ``timed_plain``)."""
+    import torch
+    from repro_torch.kernels import qo_query_batched
+    K, (_, Fq, Cq) = qrows.numel(), tsx.shape
+    merit_k, thr_k = qo_query_batched.best_splits_kernel(ty, tsx, qrows)
+    merit_p, thr_p = qo_query_batched.best_splits_plain(ty, tsx, qrows)
+    err = _close(merit_k, merit_p, f"qo_query_batched ({what}) merit")
+    # a threshold may only differ where the kernel's boundary ties the
+    # plain version's best within tolerance (f32 order can flip a tie)
+    flat = lambda a: a[qrows.long()].reshape(K * Fq, Cq)
+    score, cand = qo_query_batched.query_scores_plain(
+        flat(ty["n"]), flat(ty["mean"]), flat(ty["m2"]), flat(tsx))
+    tk, tp = thr_k.reshape(-1), thr_p.reshape(-1)
+    diff = ((tk - tp).abs() > TOL * tp.abs() + TOL).nonzero().reshape(-1)
+    for i in diff.tolist():
+        hit = (cand[i] == tk[i]).nonzero().reshape(-1)
+        best = float(merit_p.reshape(-1)[i])
+        if hit.numel() == 0 or abs(float(score[i, hit[0]]) - best) \
+                > TOL * abs(best) + TOL:
+            raise AssertionError(f"qo_query_batched ({what}): threshold of "
+                                 f"table {i} is not a near-tie of the best "
+                                 f"boundary")
+    again = qo_query_batched.best_splits_kernel(ty, tsx, qrows)
+    if not (torch.equal(merit_k, again[0]) and torch.equal(thr_k, again[1])):
+        raise AssertionError(f"qo_query_batched ({what}): a rerun differs")
+    nbytes = K * Fq * Cq * 16 + K * 4 + K * Fq * 8
+    bound, by = _bound(nbytes, K * Fq * Cq * 30)
+    fn = lambda: qo_query_batched.best_splits_kernel(ty, tsx, qrows)
+    row = dict(
+        name="qo_query_batched", route="cuda",
+        source="src/repro_torch/csrc/qo_query_batched.cu",
+        replaces="src/repro/kernels/qo_query_batched.py:151",
+        max_abs_err=err, ms=_time_ms(fn),
+        plain_ms=_time_ms(lambda: qo_query_batched.best_splits_plain(
+            ty, tsx, qrows)) if timed_plain else None,
+        bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"[3] qo_query_batched ({what}): K={K} tables x {Fq} features, "
+          f"C={Cq}, {len(diff)} near-tie thresholds, max abs err {err:.3g}, "
+          f"rerun bitwise equal; {row['ms']:.4f} ms a call, device "
+          f"{_device_ms(fn):.4f} ms (bound {bound:.5f} ms)", flush=True)
+    return row
 
 
 def _qo_planes(table):
@@ -863,10 +1051,9 @@ def main(argv=None) -> int:
     from repro_torch.core import forest as fr
     from repro_torch.core import hoeffding as ht
     from repro_torch.core import serve as sv
-    from repro_torch.core import stats
     from repro_torch.data import synth
-    from repro_torch.kernels import _build, qo_query_batched, qo_route
-    from repro_torch.kernels import qo_update_leaves
+    from repro_torch.kernels import _build, qo_route, qo_update_leaves
+    from repro_torch.kernels import ops as kops
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -989,54 +1176,20 @@ def main(argv=None) -> int:
           f"{dev_ms:.4f} ms a launch (bound {bound:.5f} ms)", flush=True)
     _absorb_first_batch(cfg, batches, args.seed, dev)
 
-    # the attempt set the main path would query after absorbing this batch
-    batch_leaf = ht.segment_stats(yk.repeat(T), gl, T * M, w)
-    after = dict(trees,
-                 ystats=stats.merge({k: fold(v) for k, v in
-                                     trees["ystats"].items()}, batch_leaf),
-                 seen_since_attempt=fold(trees["seen_since_attempt"])
-                 + batch_leaf["n"],
-                 is_leaf=fold(trees["is_leaf"]), depth=fold(trees["depth"]))
-    attempt = ht.attempt_mask(cfg.tree, after) & (
-        trees["n_nodes"].repeat_interleave(M) + 1 < M)
-    qrows = torch.nonzero(attempt).reshape(-1).to(torch.int32)
-    K = qrows.numel()
-    if K == 0:
-        raise AssertionError("qo_query_batched: no leaf attempts a split")
-    merit_k, thr_k = qo_query_batched.best_splits_kernel(ty_k, tsx_k, qrows)
-    merit_p, thr_p = qo_query_batched.best_splits_plain(ty_k, tsx_k, qrows)
-    err = _close(merit_k, merit_p, "qo_query_batched merit")
-    # a threshold may only differ where the kernel's boundary ties the
-    # plain version's best within tolerance (f32 order can flip a tie)
-    flat = lambda a: a[qrows.long()].reshape(K * F, C)
-    score, cand = qo_query_batched.query_scores_plain(
-        flat(ty_k["n"]), flat(ty_k["mean"]), flat(ty_k["m2"]), flat(tsx_k))
-    tk, tp = thr_k.reshape(-1), thr_p.reshape(-1)
-    diff = ((tk - tp).abs() > TOL * tp.abs() + TOL).nonzero().reshape(-1)
-    for i in diff.tolist():
-        hit = (cand[i] == tk[i]).nonzero().reshape(-1)
-        best = float(merit_p.reshape(-1)[i])
-        if hit.numel() == 0 or abs(float(score[i, hit[0]]) - best) \
-                > TOL * abs(best) + TOL:
-            raise AssertionError(f"qo_query_batched: threshold of table {i} "
-                                 f"is not a near-tie of the best boundary")
-    nbytes = K * F * C * 16 + K * 4 + K * F * 8
-    bound, by = _bound(nbytes, K * F * C * 30)
-    rows.append(dict(
-        name="qo_query_batched", route="cuda",
-        source="src/repro_torch/csrc/qo_query_batched.cu",
-        replaces="src/repro/kernels/qo_query_batched.py:151",
-        max_abs_err=err,
-        ms=_time_ms(lambda: qo_query_batched.best_splits_kernel(
-            ty_k, tsx_k, qrows)),
-        plain_ms=_time_ms(lambda: qo_query_batched.best_splits_plain(
-            ty_k, tsx_k, qrows)),
-        bound_ms=bound, bound_by=by, library_ms=None))
-    print(f"[3] qo_query_batched: K={K} tables x {F} features, "
-          f"{len(diff)} near-tie thresholds, max abs err {err:.3g}",
-          flush=True)
-    del ty_k, tsx_k, ty_p, tsx_p, scratch_k, scratch_p, state, trees, after
-    rows.append(_sketch_compact_row(scfg, sbatches, args.seed, dev))
+    qrows = _attempt_rows(cfg, trees, gl, yk, w)
+    rows.append(_query_row(ty_k, tsx_k, qrows, "QO forest", True))
+    del ty_k, tsx_k, ty_p, tsx_p, scratch_k, scratch_p, state, trees
+    sin = _sketch_inputs(scfg, sbatches, args.seed, dev)
+    row, merged = _sketch_compact_row(sin)
+    rows.append(row)
+    # the sketch forest's attempt set at C = K = 16: two tables a warp
+    stab = [a.reshape(T * M, F, KS) for a in merged]
+    sy, ssx = kops.sketch_to_bins({"n": stab[0], "mean": stab[1],
+                                   "m2": stab[2]}, stab[3])
+    _query_row(sy, ssx, _attempt_rows(scfg, sin["trees"], sin["gl"],
+                                      sin["yk"], sin["w"]),
+               "sketch forest", False)
+    del sin, merged, stab, sy, ssx
     rows.extend(_qo_rows(args.seed, dev))
     rows.append(_qo_merge_row(cfg, batches, args.seed, dev))
 

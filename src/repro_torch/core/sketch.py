@@ -20,8 +20,9 @@ Sketch algebra, deterministic and with static shapes:
   (stable; empties carry +inf and sink to the tail), puts each centroid in
   the bucket of its cumulative-weight midpoint
   ``floor((cumw_i - n_i/2) * K / tot)`` and reduces each bucket exactly
-  (:mod:`repro_torch.kernels.sketch_compact`, a CUDA kernel on the card);
-* **merge(A, B)** concatenates the 2K centroids and compacts back to K;
+  (:mod:`repro_torch.kernels.sketch_compact`: on the card one CUDA kernel
+  does all three);
+* **merge(A, B)** compacts the 2K centroids of both back to K;
 * **update** pre-sketches the batch per leaf (rows sorted by (leaf, x),
   within-leaf rank buckets) and merges.
 
@@ -106,45 +107,26 @@ def summary(table) -> Dict[str, torch.Tensor]:
 # sketch-observer plane algebra: (..., J) planes n / mean / m2 / sum_x
 # --------------------------------------------------------------------------
 
-def prototypes(n, sum_x, empty: float = float("inf")):
-    """Per-centroid prototype ``sum_x / n``, ``empty`` at n == 0 slots."""
-    return torch.where(n > 0, sum_x / torch.where(n > 0, n, 1.0), empty)
-
-
-def sort_planes(n, mean, m2, sum_x):
-    """Stable sort of the centroids along the last axis by ascending
-    prototype, empties last (the identity on well-formed sketch state)."""
-    key = prototypes(n, sum_x) + 0.0
-    order = torch.sort(key, dim=-1, stable=True).indices
-    return tuple(torch.gather(a, -1, order) for a in (n, mean, m2, sum_x))
-
-
-def _bucket_ids(n_sorted, k_out: int):
-    """int32 rank bucket of each sorted centroid: its cumulative-weight
-    midpoint scaled to ``k_out`` buckets, clipped."""
-    cumw = torch.cumsum(n_sorted, -1)
-    tot = torch.clamp(cumw[..., -1:], min=1e-30)
-    mid = cumw - 0.5 * n_sorted
-    return torch.clamp(xla_int32(mid * (k_out / tot)), 0,
-                       k_out - 1).to(torch.int32)
+prototypes = sketch_compact.prototypes
+sort_planes = sketch_compact.sort_planes
+_bucket_ids = sketch_compact.bucket_ids
 
 
 def compact_planes(n, mean, m2, sum_x, k_out: int):
     """Compact (..., J) centroid planes to (..., k_out): sort, rank-bucket,
     reduce each bucket exactly.  The output is ascending-prototype."""
-    n, mean, m2, sum_x = (a.contiguous() for a in
-                          sort_planes(n, mean, m2, sum_x))
-    return sketch_compact.bucket_reduce(n, mean, m2, sum_x,
-                                        _bucket_ids(n, k_out), k_out)
+    return sketch_compact.compact(
+        [a.contiguous() for a in (n, mean, m2, sum_x)], k_out)
 
 
 def merge_planes(a_n, a_mean, a_m2, a_sum_x, b_n, b_mean, b_m2, b_sum_x):
     """Merge two same-shape (..., K) sketches: the 2K centroids compacted
-    back to K.  The empty sketch (all zeros) is an identity."""
+    back to K (on the card read from both sketches in place, with no
+    concatenation).  The empty sketch (all zeros) is an identity."""
     k = a_n.shape[-1]
-    cat = lambda a, b: torch.cat([a, b], -1)
-    return compact_planes(cat(a_n, b_n), cat(a_mean, b_mean),
-                          cat(a_m2, b_m2), cat(a_sum_x, b_sum_x), k)
+    c = lambda *ts: [t.contiguous() for t in ts]
+    return sketch_compact.compact(c(a_n, a_mean, a_m2, a_sum_x), k,
+                                  c(b_n, b_mean, b_m2, b_sum_x))
 
 
 def from_batch_planes(leaf, X, y, w, n_tables: int, k: int):

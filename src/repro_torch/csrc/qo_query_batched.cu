@@ -5,124 +5,416 @@
 // per-table argmax epilogue of src/repro/kernels/ops.py::_query_full.  The
 // TPU kernel lays a (tile_m, 128) slab of tables across vector lanes and
 // runs a Hillis-Steele prefix Chan merge over the bins of every table of
-// the slab, skipping slabs with no attempting leaf.  Here the wrapper has
-// already compacted the attempting leaves (torch.nonzero on the attempt
-// mask), so the grid covers exactly the K*F tables that are queried, and
-// one thread owns one table:
+// the slab.  Here the wrapper has compacted the attempting leaves
+// (torch.nonzero on the attempt mask), so the grid covers exactly the K*F
+// queried tables, and one warp owns one table with its lanes on
+// consecutive bins -- each plane of a 32-bin chunk is one coalesced 128 B
+// load.  Tables of C <= 16 bins (the sketch's K slots) go two to a warp,
+// 16 lanes each, with segmented shuffles (``width`` = 16).
 //
-//   pass 1  the total (n, mean, M2) of the table, by sequential Chan merges
-//           of its occupied bins;
-//   pass 2  the inclusive prefix merge bin by bin; at each occupied bin the
-//           right-hand complement by the paper's subtraction (Eqs. 6-7) and
-//           the variance reduction VR; the candidate threshold is the
-//           midpoint of this bin's prototype (sum_x / n) and the next
-//           occupied bin's, so a boundary counts once that bin is found;
-//   argmax  the best boundary as jnp.argmax picks it: a NaN wins, else the
-//           first maximum.  Writes merit and threshold, (K, F) each;
-//           -inf / 0 where the table has no valid boundary.
+// Per table, over chunks of W = 32 (or 16) bins:
 //
-// An empty bin changes neither the prefix nor the neighbouring prototypes,
-// so boundaries at empty bins repeat the previous occupied boundary's VR
-// and threshold and can never be a first maximum: skipping them leaves the
-// argmax unchanged.
+//   prefix   a Kogge-Stone shuffle scan of the Chan merge (paper Eqs.
+//            4-5, one reciprocal a merge), the TPU kernel's own order
+//            within a chunk; the running aggregate of the earlier chunks
+//            is merged in on the left.  An empty operand is an exact
+//            identity on either side, so an empty bin never moves a mean
+//            by an ulp;
+//   total    the last lane's prefix after the last chunk.  Up to 4 chunks
+//            (C <= 128, the forest's C = 64 among them) stay in registers:
+//            every load is issued at once and the chunks' scans are
+//            independent.  Past that a first pass carries the prefix to
+//            the total and keeps each chunk's entry aggregate in shared
+//            memory, and a second pass recomputes each chunk's prefix;
+//   per bin  the complement by the paper's subtraction (Eqs. 6-7) and the
+//            variance reduction VR; the last occupied prototype at or
+//            before the bin and the first strictly after it, found from
+//            the chunk's occupancy ballot (the highest set bit at or below
+//            the lane, the lowest above it; one shuffle fetches each) and
+//            otherwise carried from the nearest occupied chunk -- the same
+//            selection as a max-scan up and a min-scan down of the bin
+//            index, without their 20 shuffles a chunk; the candidate is
+//            their midpoint, valid where both exist;
+//   argmax   each lane keeps its best bin, then a butterfly max over the
+//            lanes of one 64-bit key (the score's ordered bits, then the
+//            bin inverted): a NaN wins, then the larger score, then the
+//            lower bin -- jnp.argmax's pick, in any order of comparison.
+//            The winner's lane reports merit and threshold (-inf / 0
+//            where the table has no valid boundary).
+//
+// Every operation is an explicitly rounded intrinsic (no contraction into
+// FMAs; reciprocals and divisions IEEE, __frcp_rn / __fdiv_rn) and the
+// shuffle order is fixed, so a rerun is bitwise equal, and so is a
+// float32 model of the same order (tests/test_torch_kernels.py).
 //
 // What bounds it on the H100: the bytes of the K*F queried tables (four
-// planes of C floats each, read once) -- about 1 us per 1,000 tables at
-// C=64.  One thread per table reads its bins with a stride of C floats
-// between neighbouring threads, which wastes most of each 32 B sector;
-// the warp-per-table layout with shuffle scans is a later PR's work.
+// planes of C floats each, read once) -- about 0.3 us per 1,000 tables at
+// C = 64.  The kernel is held instead by the issue of its dependent
+// chains (each Kogge-Stone step a shuffle and a Chan merge with an IEEE
+// reciprocal; PERF.md has the time a table); the ballots in place of
+// neighbour scans and a compile-time width are what brought it there.
 #include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
 
-__device__ __forceinline__ float var_of(float n, float m2) {
-  float d = n - 1.f;
-  return d > 0.f ? m2 / d : 0.f;
+#define FULL 0xffffffffu
+
+namespace {
+
+// warps a block (fewer when C is large); 4 rather than 8 evens out the
+// last wave of blocks over the SMs
+constexpr int MAX_WARPS = 4;
+
+struct Stat {
+  float n, mean, m2;
+};
+
+// Chan merge of a (left) and b (right), the TPU kernel's arithmetic with
+// one reciprocal of the merged count (as the absorbs, ROADMAP C11);
+// an empty side returns the other side unchanged.
+__device__ __forceinline__ Stat chan(Stat a, Stat b) {
+  if (!(b.n > 0.f)) return a;
+  if (!(a.n > 0.f)) return b;
+  const float tn = __fadd_rn(a.n, b.n);
+  const float inv = __frcp_rn(tn);
+  const float delta = __fsub_rn(b.mean, a.mean);
+  Stat r;
+  r.mean = __fmul_rn(__fadd_rn(__fmul_rn(a.n, a.mean), __fmul_rn(b.n, b.mean)),
+                     inv);
+  r.m2 = __fadd_rn(__fadd_rn(a.m2, b.m2),
+                   __fmul_rn(__fmul_rn(__fmul_rn(delta, delta),
+                                       __fmul_rn(a.n, b.n)), inv));
+  r.n = tn;
+  return r;
 }
 
-__global__ void qo_query_batched_kernel(
+template <int W>
+__device__ __forceinline__ Stat bcast(Stat p, int src) {
+  return Stat{__shfl_sync(FULL, p.n, src, W),
+              __shfl_sync(FULL, p.mean, src, W),
+              __shfl_sync(FULL, p.m2, src, W)};
+}
+
+__device__ __forceinline__ float var_of(float n, float m2) {
+  const float d = __fsub_rn(n, 1.f);
+  return d > 0.f ? __fdiv_rn(m2, d) : 0.f;
+}
+
+// (score, bin) a preferred to b: a NaN first, then the larger score, then
+// the lower bin -- a total order, so any reduction order picks the same.
+__device__ __forceinline__ bool better(float as, int ab, float bs, int bb) {
+  const bool an = as != as, bn = bs != bs;
+  if (an != bn) return an;
+  if (!an && as != bs) return as > bs;
+  return ab < bb;
+}
+
+struct Chunk {
+  Stat s;
+  float proto;
+  bool occ;
+};
+
+__device__ __forceinline__ Chunk load(const float* __restrict__ n,
+                                      const float* __restrict__ mean,
+                                      const float* __restrict__ m2,
+                                      const float* __restrict__ sx,
+                                      long long base, int c, bool in) {
+  Chunk b;
+  b.s.n = in ? n[base + c] : 0.f;
+  b.s.mean = in ? mean[base + c] : 0.f;
+  b.s.m2 = in ? m2[base + c] : 0.f;
+  const float x = in ? sx[base + c] : 0.f;
+  b.occ = b.s.n > 0.f;
+  b.proto = b.occ ? __fdiv_rn(x, b.s.n) : 0.f;
+  return b;
+}
+
+// Inclusive Kogge-Stone prefix Chan merge over the W lanes of the segment.
+template <int W>
+__device__ __forceinline__ Stat prefix_scan(Stat p, int sl) {
+#pragma unroll
+  for (int d = 1; d < W; d <<= 1) {
+    Stat o;
+    o.n = __shfl_up_sync(FULL, p.n, d, W);
+    o.mean = __shfl_up_sync(FULL, p.mean, d, W);
+    o.m2 = __shfl_up_sync(FULL, p.m2, d, W);
+    if (sl >= d) p = chan(o, p);
+  }
+  return p;
+}
+
+// The occupied bins of the lane's segment (W lanes) as a bit mask.
+template <int W>
+__device__ __forceinline__ unsigned occupied(bool occ, int lane) {
+  const unsigned all = __ballot_sync(FULL, occ);
+  if constexpr (W == 32) return all;
+  else return (all >> (lane & ~(W - 1))) & ((1u << W) - 1u);
+}
+
+// Occupied prototypes around lane sl's bin within one chunk, from the
+// chunk's occupancy mask: the last at or before it and the first strictly
+// after it (has, value); and the chunk's first and last.
+struct Near {
+  int l_has, n_has;
+  float l_val, n_val;
+};
+
+template <int W>
+__device__ __forceinline__ Near near_in_chunk(unsigned occm, float proto,
+                                              int sl) {
+  Near r;
+  const unsigned upto = occm & (0xffffffffu >> (31 - sl));
+  const unsigned after = sl + 1 < W ? occm >> (sl + 1) : 0u;
+  r.l_has = upto != 0u;
+  r.n_has = after != 0u;
+  r.l_val = __shfl_sync(FULL, proto, r.l_has ? 31 - __clz(upto) : sl, W);
+  r.n_val = __shfl_sync(FULL, proto, r.n_has ? sl + __ffs(after) : sl, W);
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ float chunk_first(unsigned occm, float proto) {
+  return __shfl_sync(FULL, proto, occm ? __ffs(occm) - 1 : 0, W);
+}
+
+template <int W>
+__device__ __forceinline__ float chunk_last(unsigned occm, float proto) {
+  return __shfl_sync(FULL, proto, occm ? 31 - __clz(occm) : 0, W);
+}
+
+// What every bin of a table needs of its total: the total, the
+// reciprocals of max(n, 1) and of n (1 where empty), and its variance.
+struct Total {
+  Stat t;
+  float inv_tot, inv_ntot, s2d;
+};
+
+__device__ __forceinline__ Total total_of(Stat t) {
+  // max(n, 1) as jnp.maximum takes it: NaN stays NaN
+  const float n_tot = t.n < 1.f ? 1.f : t.n;
+  return Total{t, __frcp_rn(t.n > 0.f ? t.n : 1.f), __frcp_rn(n_tot),
+               var_of(t.n, t.m2)};
+}
+
+// The VR of the boundary after each lane's bin (prefix p), its candidate
+// threshold, and the lane's running best.
+__device__ __forceinline__ void score_bin(Stat p, const Total& T, bool valid,
+                                          float l_val, float n_val, int c,
+                                          float& best, int& best_bin,
+                                          float& best_cand) {
+  // complement by subtraction (Eqs. 6-7)
+  const float rn = __fsub_rn(T.t.n, p.n);
+  const float rmean = rn > 0.f
+      ? __fdiv_rn(__fsub_rn(__fmul_rn(T.t.n, T.t.mean),
+                            __fmul_rn(p.n, p.mean)), rn)
+      : 0.f;
+  const float delta = __fsub_rn(p.mean, rmean);
+  float rm2 = __fsub_rn(__fsub_rn(T.t.m2, p.m2),
+                        __fmul_rn(__fmul_rn(__fmul_rn(delta, delta),
+                                            __fmul_rn(rn, p.n)),
+                                  T.inv_tot));
+  // max(rm2, 0) as jnp.maximum takes it: NaN stays NaN
+  rm2 = rn > 0.f ? (rm2 < 0.f ? 0.f : rm2) : 0.f;
+  const float vr = __fsub_rn(
+      __fsub_rn(T.s2d, __fmul_rn(__fmul_rn(p.n, T.inv_ntot),
+                                 var_of(p.n, p.m2))),
+      __fmul_rn(__fmul_rn(rn, T.inv_ntot), var_of(rn, rm2)));
+  const float score = valid ? vr : __int_as_float(0xff800000);
+  if (better(score, c, best, best_bin)) {
+    best = score;
+    best_bin = c;
+    best_cand = __fmul_rn(0.5f, __fadd_rn(l_val, n_val));
+  }
+}
+
+// (score, bin) as one unsigned key whose maximum is better()'s pick: a
+// NaN first, then the larger score (-0.0 equal to +0.0), then the lower
+// bin.
+__device__ __forceinline__ uint64_t pick_key(float score, int bin) {
+  const float v = __fadd_rn(score, 0.f);
+  uint32_t u = __float_as_uint(v);
+  u = v != v ? 0xffffffffu : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+  return ((uint64_t)u << 32) | (uint32_t)(INT_MAX - bin);
+}
+
+}  // namespace
+
+// NCH > 0: the table's NCH chunks (C <= NCH * W) held in registers, all
+// loads in flight at once and the chunks' scans independent; NCH == 0:
+// any C, two passes over the chunks with each chunk's entry aggregate in
+// shared memory.
+template <int W, int NCH>
+__global__ void __launch_bounds__(MAX_WARPS * 32) qo_query_batched_kernel(
     const int* __restrict__ rows, const float* __restrict__ tab_n,
     const float* __restrict__ tab_mean, const float* __restrict__ tab_m2,
     const float* __restrict__ tab_sx, float* __restrict__ merit,
-    float* __restrict__ thr, int K, int F, int C) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)K * F) return;
-  int k = (int)(i / F);
-  int f = (int)(i - (long long)k * F);
-  const long long base = ((long long)rows[k] * F + f) * C;
-  const float* n = tab_n + base;
-  const float* mu = tab_mean + base;
-  const float* m2 = tab_m2 + base;
-  const float* sx = tab_sx + base;
-
-  // pass 1: table total by sequential Chan merges (Eqs. 4-5)
-  float tn = 0.f, tmean = 0.f, tm2 = 0.f;
-  for (int c = 0; c < C; ++c) {
-    float bn = n[c];
-    if (!(bn > 0.f)) continue;
-    float bmean = mu[c];
-    float s = tn + bn;
-    float delta = bmean - tmean;
-    tmean = (tn * tmean + bn * bmean) / s;
-    tm2 = tm2 + m2[c] + delta * delta * (tn * bn) / s;
-    tn = s;
+    float* __restrict__ thr, int K, int F, int C, int nch) {
+  extern __shared__ float smem[];  // NCH == 0: 5 floats a chunk a table
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_warp = 32 / W;
+  const int sl = lane & (W - 1);
+  const int first = (blockIdx.x * (blockDim.x >> 5) + warp) * per_warp;
+  const int tables = K * F;
+  if (first >= tables) return;  // the whole warp leaves together
+  const int s = first + lane / W;
+  const bool active = s < tables;
+  long long base = 0;
+  if (active) {
+    const int k = s / F, f = s - k * F;
+    base = ((long long)rows[k] * F + f) * C;
   }
-  const float s2_d = var_of(tn, tm2);
-  const float n_tot = fmaxf(tn, 1.f);
-  const float safe_tot = tn > 0.f ? tn : 1.f;
+  float best = __int_as_float(0xff800000), best_cand = 0.f;  // -inf
+  int best_bin = INT_MAX;
 
-  // pass 2: prefix, complement, VR, neighbouring-prototype thresholds
-  float pn = 0.f, pmean = 0.f, pm2 = 0.f;
-  bool pending = false;          // an occupied bin waiting for its neighbour
-  float pend_vr = 0.f, pend_proto = 0.f;
-  float best = __int_as_float(0xff800000), best_thr = 0.f;  // -inf
-  bool best_nan = false;
-  for (int c = 0; c < C; ++c) {
-    float bn = n[c];
-    if (!(bn > 0.f)) continue;
-    float proto = sx[c] / bn;
-    if (pending && !best_nan) {
-      if (pend_vr != pend_vr) {  // NaN (no fast-math: compares are IEEE)
-        best = pend_vr;
-        best_thr = 0.5f * (pend_proto + proto);
-        best_nan = true;
-      } else if (pend_vr > best) {
-        best = pend_vr;
-        best_thr = 0.5f * (pend_proto + proto);
-      }
+  if constexpr (NCH > 0) {
+    Chunk b[NCH];
+    Stat p[NCH];
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int c = ch * W + sl;
+      b[ch] = load(tab_n, tab_mean, tab_m2, tab_sx, base, c, active && c < C);
     }
-    float bmean = mu[c];
-    float s = pn + bn;
-    float delta = bmean - pmean;
-    pmean = (pn * pmean + bn * bmean) / s;
-    pm2 = pm2 + m2[c] + delta * delta * (pn * bn) / s;
-    pn = s;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) p[ch] = prefix_scan<W>(b[ch].s, sl);
+    Stat carry = bcast<W>(p[0], W - 1);
+#pragma unroll
+    for (int ch = 1; ch < NCH; ++ch) {
+      p[ch] = chan(carry, p[ch]);
+      carry = bcast<W>(p[ch], W - 1);
+    }
+    const Total tot = total_of(carry);
 
-    float rn = tn - pn;
-    float rmean = rn > 0.f ? (tn * tmean - pn * pmean) / rn : 0.f;
-    float d = pmean - rmean;
-    float rm2 = tm2 - pm2 - d * d * (rn * pn) / safe_tot;
-    rm2 = rn > 0.f ? fmaxf(rm2, 0.f) : 0.f;
-    pend_vr = s2_d - (pn / n_tot) * var_of(pn, pm2)
-              - (rn / n_tot) * var_of(rn, rm2);
-    pend_proto = proto;
-    pending = true;
+    // occupied prototypes around each bin: within its chunk from the
+    // chunk's occupancy mask, else from the nearest occupied chunk
+    Near nb[NCH];
+    unsigned om[NCH];
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      om[ch] = occupied<W>(b[ch].occ, lane);
+      nb[ch] = near_in_chunk<W>(om[ch], b[ch].proto, sl);
+    }
+    int c_has = 0;
+    float c_val = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {  // the last before the chunk
+      if (!nb[ch].l_has) { nb[ch].l_has = c_has; nb[ch].l_val = c_val; }
+      const float last = chunk_last<W>(om[ch], b[ch].proto);
+      if (om[ch]) { c_has = 1; c_val = last; }
+    }
+    c_has = 0;
+#pragma unroll
+    for (int ch = NCH - 1; ch >= 0; --ch) {  // the first after the chunk
+      if (!nb[ch].n_has) { nb[ch].n_has = c_has; nb[ch].n_val = c_val; }
+      const float first = chunk_first<W>(om[ch], b[ch].proto);
+      if (om[ch]) { c_has = 1; c_val = first; }
+    }
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int c = ch * W + sl;
+      score_bin(p[ch], tot, active && c < C && nb[ch].l_has && nb[ch].n_has,
+                nb[ch].l_val, nb[ch].n_val, c, best, best_bin, best_cand);
+    }
+  } else {
+    float* entry = smem + (size_t)(warp * per_warp + lane / W) * nch * 5;
+    // pass 1: carry the prefix and the last occupied prototype to each
+    // chunk's entry (n, mean, m2, has, value), the prefix on to the total
+    Stat carry{0.f, 0.f, 0.f};
+    int c_has = 0;
+    float c_val = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int c = ch * W + sl;
+      const Chunk b = load(tab_n, tab_mean, tab_m2, tab_sx, base, c,
+                           active && c < C);
+      if (sl == 0) {
+        float* e = entry + ch * 5;
+        e[0] = carry.n; e[1] = carry.mean; e[2] = carry.m2;
+        e[3] = __int_as_float(c_has); e[4] = c_val;
+      }
+      carry = bcast<W>(chan(carry, prefix_scan<W>(b.s, sl)), W - 1);
+      const unsigned om = occupied<W>(b.occ, lane);
+      const float last = chunk_last<W>(om, b.proto);
+      if (om) { c_has = 1; c_val = last; }
+    }
+    __syncwarp();
+    const Total tot = total_of(carry);
+    // pass 2, chunks last to first
+    c_has = 0;
+    c_val = 0.f;
+    for (int ch = nch - 1; ch >= 0; --ch) {
+      const int c = ch * W + sl;
+      const Chunk b = load(tab_n, tab_mean, tab_m2, tab_sx, base, c,
+                           active && c < C);
+      const float* e = entry + ch * 5;
+      const Stat p = chan(Stat{e[0], e[1], e[2]}, prefix_scan<W>(b.s, sl));
+      const unsigned om = occupied<W>(b.occ, lane);
+      Near nb = near_in_chunk<W>(om, b.proto, sl);
+      if (!nb.l_has) { nb.l_has = __float_as_int(e[3]); nb.l_val = e[4]; }
+      if (!nb.n_has) { nb.n_has = c_has; nb.n_val = c_val; }
+      const float first = chunk_first<W>(om, b.proto);
+      if (om) { c_has = 1; c_val = first; }
+      score_bin(p, tot, active && c < C && nb.l_has && nb.n_has, nb.l_val,
+                nb.n_val, c, best, best_bin, best_cand);
+    }
   }
-  merit[i] = best;
-  thr[i] = best_thr;
+
+  // argmax across the segment's lanes, then the winner's lane reports
+  uint64_t key = pick_key(best, best_bin);
+#pragma unroll
+  for (int off = W >> 1; off > 0; off >>= 1) {
+    const uint64_t o = __shfl_xor_sync(FULL, key, off, W);
+    key = o > key ? o : key;
+  }
+  const int src = (INT_MAX - (int)(uint32_t)key) & (W - 1);
+  best = __shfl_sync(FULL, best, src, W);
+  best_cand = __shfl_sync(FULL, best_cand, src, W);
+  if (active && sl == 0) {
+    merit[s] = best;
+    thr[s] = best == __int_as_float(0xff800000) ? 0.f : best_cand;
+  }
 }
 
+// C up to 65,536 (kernels/qo_query_batched.py::MAX_BINS): a one-warp
+// block's chunk entries then stay within 48 KB of shared memory.
 extern "C" int qo_query_batched_launch(const void* rows, const void* tab_n,
                                        const void* tab_mean,
                                        const void* tab_m2, const void* tab_sx,
                                        void* merit, void* thr, int K, int F,
                                        int C, void* stream) {
-  long long n = (long long)K * F;
-  if (n == 0) return 0;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  qo_query_batched_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)rows, (const float*)tab_n, (const float*)tab_mean,
-      (const float*)tab_m2, (const float*)tab_sx, (float*)merit, (float*)thr,
-      K, F, C);
+  const long long tables = (long long)K * F;
+  if (tables == 0) return 0;
+  if (tables > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int W = C <= 16 ? 16 : 32;
+  const int nch = (C + W - 1) / W;
+  const int per_warp = 32 / W;
+  int warps = MAX_WARPS;
+  const size_t entry = nch > 4 ? (size_t)nch * 5 * sizeof(float) : 0;
+  while (warps > 1 && (size_t)warps * per_warp * entry > 48 * 1024)
+    warps >>= 1;
+  const long long per_block = (long long)warps * per_warp;
+  const unsigned blocks = (unsigned)((tables + per_block - 1) / per_block);
+  const size_t shmem = (size_t)per_block * entry;
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto* r = (const int*)rows;
+  const auto *n = (const float*)tab_n, *mu = (const float*)tab_mean,
+             *m2 = (const float*)tab_m2, *sx = (const float*)tab_sx;
+  auto *me = (float*)merit, *th = (float*)thr;
+  const dim3 grid(blocks), block(warps * 32);
+  if (W == 16)
+    qo_query_batched_kernel<16, 1><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch == 1)
+    qo_query_batched_kernel<32, 1><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch == 2)
+    qo_query_batched_kernel<32, 2><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch <= 4)
+    qo_query_batched_kernel<32, 4><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else
+    qo_query_batched_kernel<32, 0><<<grid, block, shmem, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,12 @@ midpoint of the neighbouring occupied prototypes, and the best boundary
 (merit, thr), both (K, F); merit is -inf and thr 0 where a table has no
 valid boundary.
 
-:func:`best_splits` launches ``csrc/qo_query_batched.cu`` (sequential Chan
-merges, as the TPU kernel does in log depth) on a CUDA tensor and runs
+:func:`best_splits` launches ``csrc/qo_query_batched.cu`` (a warp per
+table: the TPU kernel's Kogge-Stone prefix Chan merge over chunks of 32
+bins, or 16 for C <= 16) on a CUDA tensor and runs
 :func:`best_splits_plain` (the reference's ``ops._forest_query_jnp``:
 centred prefix sums) on a CPU one.  The two differ by f32 rounding only
-(ROADMAP B3).
+(ROADMAP B3, C6).
 """
 from __future__ import annotations
 
@@ -25,7 +26,11 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["query_scores_plain", "best_splits_plain", "best_splits_kernel",
-           "best_splits"]
+           "best_splits", "MAX_BINS"]
+
+#: Largest C the kernel takes: a table's chunk entries (5 floats per 32
+#: bins) in one block's 48 KB of shared memory.
+MAX_BINS = 65536
 
 
 def query_scores_plain(n, mean, m2, sum_x):
@@ -108,6 +113,9 @@ def best_splits_kernel(tab_y, tab_sum_x, rows):
                              f"float32 (N, F, C) tensor on {dev}")
     if rows.device != dev or rows.dtype != torch.int32 or rows.dim() != 1:
         raise ValueError(f"qo_query_batched: rows must be int32 (K,) on {dev}")
+    if not 0 < C <= MAX_BINS:
+        raise ValueError(f"qo_query_batched: C = {C}, expected "
+                         f"1..{MAX_BINS}")
     K = rows.shape[0]
     merit = torch.empty((K, F), dtype=torch.float32, device=dev)
     thr = torch.empty((K, F), dtype=torch.float32, device=dev)

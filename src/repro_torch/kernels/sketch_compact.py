@@ -1,21 +1,31 @@
-"""Sketch compaction: the grouped reduction of sorted centroids into rank
-buckets.
+"""Sketch compaction: sort each row's centroids by prototype, rank them
+into K buckets by cumulative weight and reduce each bucket exactly.
 
 Replaces ``src/repro/kernels/sketch_compact.py::sketch_compact_pallas``
-(the compute stage of ``core/sketch.py::compact_planes``).  Planes are
-(..., J): ``n``, ``mean``, ``m2``, ``sum_x`` per centroid, each row's
-centroids sorted by prototype, and ``bucket`` (..., J) the int32 rank
-bucket of each centroid in [0, K).  Per row and bucket k:
+together with the jnp stages the reference keeps around it
+(``core/sketch.py::sort_planes``, ``_bucket_ids`` and ``merge_planes``'s
+concatenation).  Planes are (..., J): ``n``, ``mean``, ``m2``, ``sum_x``
+per centroid, in any order.  Per row:
 
-    n_k    = sum of n            sum_x_k = sum of sum_x
-    mean_k = sum of n * mean / n_k                 (0 where n_k == 0)
-    M2_k   = sum of M2 + n * (mean - mean_k)^2     (0 where n_k == 0)
+* sort: a stable sort by prototype ``sum_x / n`` (+inf where n == 0, so
+  empties sink; the key is canonicalized with ``+ 0.0``, ROADMAP C7);
+* rank: centroid i goes to bucket
+  ``clip(int((cumw_i - n_i/2) * (K / tot)), 0, K-1)``;
+* reduce, per bucket k:
 
--- Chan's Eqs. 4-5 as one grouped two-pass form, exact for the grouping.
-Returns four (..., K) planes.  :func:`bucket_reduce` launches
-``csrc/sketch_compact.cu`` on a CUDA tensor and runs
-:func:`bucket_reduce_plain` (the reference's ``sketch._bucket_reduce``:
-two flat segment sums) on a CPU one.
+      n_k    = sum of n            sum_x_k = sum of sum_x
+      mean_k = sum of n * mean / n_k                 (0 where n_k == 0)
+      M2_k   = sum of M2 + n * (mean - mean_k)^2     (0 where n_k == 0)
+
+  -- Chan's Eqs. 4-5 as one grouped two-pass form, exact for the grouping.
+
+Returns four (..., K) planes, ascending-prototype.  :func:`compact` takes
+one plane set, or two (``b``: a merge's second sketch, read in place of a
+concatenation).  On a CUDA tensor it launches ``csrc/sketch_compact.cu``
+(all three stages in one kernel) or raises; on a CPU tensor it runs
+:func:`compact_plain`: :func:`sort_planes` -> :func:`bucket_ids` ->
+:func:`bucket_reduce_plain` (the reference's ``sketch._bucket_reduce``,
+the TPU kernel's own function).
 """
 from __future__ import annotations
 
@@ -25,17 +35,48 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.qo_update_leaves import xla_int32
 
-__all__ = ["bucket_reduce_plain", "bucket_reduce_kernel", "bucket_reduce",
-           "MAX_BUCKETS"]
+__all__ = ["prototypes", "sort_planes", "bucket_ids", "bucket_reduce_plain",
+           "compact_plain", "compact_kernel", "compact", "MAX_BUCKETS",
+           "MAX_CENTROIDS"]
 
-#: One warp keeps its row's K bucket accumulators (4 floats each) in
-#: shared memory, 8 warps a block, within the 48 KB of static launch.
+#: Largest K: the kernel keeps a row's K bucket slots (4 floats each) in
+#: shared memory, several rows a block, within 48 KB.
 MAX_BUCKETS = 256
+#: Largest J the kernel sorts (a merge of two MAX_BUCKETS sketches).
+MAX_CENTROIDS = 2 * MAX_BUCKETS
+
+
+def prototypes(n, sum_x, empty: float = float("inf")):
+    """Per-centroid prototype ``sum_x / n``, ``empty`` at n == 0 slots."""
+    return torch.where(n > 0, sum_x / torch.where(n > 0, n, 1.0), empty)
+
+
+def sort_planes(n, mean, m2, sum_x):
+    """Stable sort of the centroids along the last axis by ascending
+    prototype, empties last (the identity on well-formed sketch state)."""
+    key = prototypes(n, sum_x) + 0.0
+    order = torch.sort(key, dim=-1, stable=True).indices
+    return tuple(torch.gather(a, -1, order) for a in (n, mean, m2, sum_x))
+
+
+def bucket_ids(n_sorted, k_out: int):
+    """int32 rank bucket of each sorted centroid: its cumulative-weight
+    midpoint scaled to ``k_out`` buckets, clipped.  (PyTorch evaluates
+    ``k_out / tot`` as ``reciprocal(tot) * k_out``; the kernel divides, as
+    the reference does -- the same value for a power-of-two ``k_out``,
+    ROADMAP C12.)"""
+    cumw = torch.cumsum(n_sorted, -1)
+    tot = torch.clamp(cumw[..., -1:], min=1e-30)
+    mid = cumw - 0.5 * n_sorted
+    return torch.clamp(xla_int32(mid * (k_out / tot)), 0,
+                       k_out - 1).to(torch.int32)
 
 
 def bucket_reduce_plain(n, mean, m2, sum_x, bucket, k_out: int):
-    """Plain PyTorch grouped reduction -> four (..., k_out) planes."""
+    """Plain PyTorch grouped reduction of sorted centroids with their
+    bucket ids -> four (..., k_out) planes."""
     lead, J = n.shape[:-1], n.shape[-1]
     R = n.numel() // max(J, 1)
     dev = n.device
@@ -56,46 +97,72 @@ def bucket_reduce_plain(n, mean, m2, sum_x, bucket, k_out: int):
     return out(n_b), out(mean_b), out(m2_b), out(sx_b)
 
 
+def compact_plain(a, k_out: int, b=None):
+    """Plain PyTorch compaction of the plane set ``a`` (and ``b``, joined
+    along the last axis) -> four (..., k_out) planes."""
+    if b is not None:
+        a = [torch.cat([u, v], -1) for u, v in zip(a, b)]
+    n, mean, m2, sum_x = sort_planes(*a)
+    return bucket_reduce_plain(n, mean, m2, sum_x, bucket_ids(n, k_out),
+                               k_out)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("sketch_compact").sketch_compact_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def bucket_reduce_kernel(n, mean, m2, sum_x, bucket, k_out: int):
-    """Launch ``csrc/sketch_compact.cu`` -> four (..., k_out) planes."""
-    dev = n.device
-    shape = n.shape
-    for name, t in (("n", n), ("mean", mean), ("m2", m2), ("sum_x", sum_x)):
+def _check_set(planes, dev, lead, what):
+    names = ("n", "mean", "m2", "sum_x")
+    if len(planes) != 4:
+        raise ValueError(f"sketch_compact: {what} must hold four planes")
+    J = planes[0].shape[-1] if planes[0].dim() else 0
+    for name, t in zip(names, planes):
         if not t.is_cuda or t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous() or t.shape != shape:
-            raise ValueError(f"sketch_compact: {name} must be a contiguous "
-                             f"float32 tensor on {dev} shaped like n")
-    if bucket.device != dev or bucket.dtype != torch.int32 \
-            or not bucket.is_contiguous() or bucket.shape != shape:
-        raise ValueError(f"sketch_compact: bucket must be a contiguous int32 "
-                         f"tensor on {dev} shaped like n")
+                or not t.is_contiguous() or t.shape != lead + (J,):
+            raise ValueError(f"sketch_compact: {what} {name} must be a "
+                             f"contiguous float32 {tuple(lead)} + (J,) "
+                             f"tensor on {dev}")
+    return J
+
+
+def compact_kernel(a, k_out: int, b=None):
+    """Launch ``csrc/sketch_compact.cu`` on the plane set ``a`` (and
+    ``b``) -> four (..., k_out) planes.  One launch a call (none when
+    there is no row)."""
+    dev = a[0].device
+    if a[0].dim() == 0:
+        raise ValueError("sketch_compact: planes need a centroid axis")
+    lead = a[0].shape[:-1]
+    Ja = _check_set(a, dev, lead, "a")
+    Jb = 0 if b is None else _check_set(b, dev, lead, "b")
     if not 0 < k_out <= MAX_BUCKETS:
         raise ValueError(f"sketch_compact: K = {k_out}, expected "
                          f"1..{MAX_BUCKETS}")
-    J = shape[-1]
-    R = n.numel() // max(J, 1)
-    out = [torch.empty(shape[:-1] + (k_out,), dtype=torch.float32,
-                       device=dev) for _ in range(4)]
+    if not 0 < Ja + Jb <= MAX_CENTROIDS:
+        raise ValueError(f"sketch_compact: J = {Ja + Jb}, expected "
+                         f"1..{MAX_CENTROIDS}")
+    out = [torch.empty(lead + (k_out,), dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    R = out[0].numel() // k_out
+    if R == 0:
+        return tuple(out)
+    bp = [t.data_ptr() for t in b] if b is not None else [None] * 4
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher()(n.data_ptr(), mean.data_ptr(), m2.data_ptr(),
-                     sum_x.data_ptr(), bucket.data_ptr(),
-                     *(o.data_ptr() for o in out), R, J, k_out, stream)
+    rc = _launcher()(*(t.data_ptr() for t in a), *bp,
+                     *(o.data_ptr() for o in out), R, Ja, Jb, k_out, stream)
     _build.check(rc, "sketch_compact")
     _build.LAUNCHES["sketch_compact"] += 1
     return tuple(out)
 
 
-def bucket_reduce(n, mean, m2, sum_x, bucket, k_out: int):
+def compact(a, k_out: int, b=None):
     """The plain version on a CPU tensor, else the kernel (or a raise)."""
-    if n.device.type == "cpu":
-        return bucket_reduce_plain(n, mean, m2, sum_x, bucket, k_out)
-    return bucket_reduce_kernel(n, mean, m2, sum_x, bucket, k_out)
+    if a[0].device.type == "cpu":
+        return compact_plain(a, k_out, b)
+    return compact_kernel(a, k_out, b)

@@ -23,6 +23,7 @@ from repro_torch.core import sketch as tsk
 from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
                                  qo_route, qo_update, qo_update_leaves,
                                  sketch_compact)
+from repro_torch.kernels.qo_update_leaves import xla_int32
 
 TOL = 1e-4
 BACKENDS = ("jnp", "interpret")
@@ -498,6 +499,176 @@ def test_query_plain_matches_reference(M, frac):
                                    err_msg=b)
 
 
+# --------------------------------------------------------------------------
+# the batched query kernel's order of work, modelled on the CPU
+# (csrc/qo_query_batched.cu: a warp a table, Kogge-Stone Chan merges over
+# chunks of 32 bins -- 16 for C <= 16 -- carried left to right)
+# --------------------------------------------------------------------------
+
+def chan_model(a, b):
+    """The kernel's Chan merge of (n, mean, m2) ``a`` (left) and ``b``:
+    the TPU kernel's arithmetic with one reciprocal of the merged count,
+    an empty side returning the other side unchanged."""
+    (an, am, a2), (bn, bm, b2) = a, b
+    tn = an + bn
+    inv = 1.0 / tn
+    delta = bm - am
+    mean = (an * am + bn * bm) * inv
+    m2 = (a2 + b2) + (delta * delta) * (an * bn) * inv
+    b_empty, a_empty = ~(bn > 0), ~(an > 0)
+    pick = lambda xa, xb, xm: torch.where(b_empty, xa,
+                                          torch.where(a_empty, xb, xm))
+    return pick(an, bn, tn), pick(am, bm, mean), pick(a2, b2, m2)
+
+
+def model_scores(n, mean, m2, sum_x):
+    """(R, C) tables -> per-bin (score, cand), (R, C) each, in the
+    kernel's order: per chunk a Kogge-Stone prefix merge, the earlier
+    chunks' aggregate merged in on the left, the complement by
+    subtraction with one reciprocal of the total's count (and of its
+    max with 1) a table; score -inf where the bin has no valid
+    boundary."""
+    R, C = n.shape
+    W = 16 if C <= 16 else 32
+    nch = -(-C // W)
+    pad = lambda a: torch.cat([a, torch.zeros(R, nch * W - C)],
+                              1).reshape(R, nch, W)
+    p = tuple(pad(a) for a in (n, mean, m2))
+    lane = torch.arange(W)
+    d = 1
+    while d < W:
+        left = tuple(torch.cat([a[..., :d], a[..., :-d]], -1) for a in p)
+        p = tuple(torch.where(lane >= d, m, a)
+                  for m, a in zip(chan_model(left, p), p))
+        d *= 2
+    carry = tuple(torch.zeros(R, 1) for _ in range(3))
+    chunks = []
+    for ch in range(nch):
+        pc = chan_model(carry, tuple(a[:, ch] for a in p))
+        chunks.append(pc)
+        carry = tuple(a[:, -1:] for a in pc)
+    pn, pmean, pm2 = (torch.cat([c[i] for c in chunks], 1) for i in range(3))
+    tn, tmean, tm2 = carry
+
+    rn = tn - pn
+    rmean = torch.where(rn > 0, (tn * tmean - pn * pmean)
+                        / torch.where(rn > 0, rn, 1.0), 0.0)
+    delta = pmean - rmean
+    inv_tot = 1.0 / torch.where(tn > 0, tn, 1.0)
+    inv_ntot = 1.0 / torch.where(tn < 1, 1.0, tn)
+    rm2 = (tm2 - pm2) - (delta * delta) * (rn * pn) * inv_tot
+    rm2 = torch.where(rn > 0, torch.where(rm2 < 0, 0.0, rm2), 0.0)
+
+    def var(nn, mm):
+        dd = nn - 1.0
+        return torch.where(dd > 0, mm / torch.where(dd > 0, dd, 1.0), 0.0)
+
+    vr = (var(tn, tm2) - (pn * inv_ntot) * var(pn, pm2)) \
+        - (rn * inv_ntot) * var(rn, rm2)
+
+    Cp = nch * W
+    occ = pad(n).reshape(R, Cp) > 0
+    sx = pad(sum_x).reshape(R, Cp)
+    proto = torch.where(occ, sx / torch.where(occ, pad(n).reshape(R, Cp),
+                                              1.0), 0.0)
+    idx = torch.arange(Cp).expand(R, Cp)
+    last = torch.cummax(torch.where(occ, idx, -1), 1).values
+    after = torch.flip(torch.cummin(torch.flip(torch.where(occ, idx, Cp),
+                                               [1]), 1).values, [1])
+    nxt = torch.cat([after[:, 1:], torch.full((R, 1), Cp)], 1)
+    ok = (last >= 0) & (nxt < Cp) & (idx < C)
+    cand = 0.5 * (torch.gather(proto, 1, last.clamp(min=0))
+                  + torch.gather(proto, 1, nxt.clamp(max=Cp - 1)))
+    score = torch.where(ok, vr, float("-inf"))
+    return score[:, :C], cand[:, :C]
+
+
+def model_query(n, mean, m2, sum_x):
+    """(R, C) tables -> (merit, thr), (R,) each: the argmax of
+    :func:`model_scores` as the kernel picks it, a NaN first, then the
+    larger score, then the lower bin."""
+    score, cand = model_scores(n, mean, m2, sum_x)
+    nan = torch.isnan(score)
+    top = torch.where(nan, float("-inf"), score).amax(1, keepdim=True)
+    best = torch.where(nan.any(1), torch.argmax(nan.int(), 1),
+                       torch.argmax((score == top).int(), 1))[:, None]
+    merit = torch.gather(score, 1, best)[:, 0]
+    thr = torch.where(merit == float("-inf"), 0.0,
+                      torch.gather(cand, 1, best)[:, 0])
+    return merit, thr
+
+
+def model_best_splits(tab_y, tab_sum_x, rows):
+    """:func:`model_query` over the table rows ``rows`` -> (K, F) each."""
+    _, F, C = tab_sum_x.shape
+    K = rows.shape[0]
+    flat = lambda a: a[rows.long()].reshape(K * F, C).cpu()
+    merit, thr = model_query(flat(tab_y["n"]), flat(tab_y["mean"]),
+                             flat(tab_y["m2"]), flat(tab_sum_x))
+    return merit.reshape(K, F), thr.reshape(K, F)
+
+
+@pytest.mark.parametrize("C", [1, 2, 16, 33, 64])
+def test_query_order_model_matches_reference(C):
+    """The kernel's order (modelled) against the TPU kernel in interpret
+    mode, the reference's jnp lowering and the port's plain version:
+    -inf where they have it, merit and threshold within 1e-4."""
+    rng = np.random.default_rng(C)
+    M, F = 12, 3
+    tab_y, sum_x = random_tables(rng, M, F, C, occupied=0.5)
+    for name in ("n", "mean", "m2"):
+        tab_y[name][0] = 0.0                     # all bins empty
+    sum_x[0] = 0.0
+    attempt = np.ones(M, bool)
+    ref, (pm, pt) = query_both(tab_y, sum_x, attempt)
+    ty = {k: torch.tensor(v) for k, v in tab_y.items()}
+    mm, mt = model_best_splits(ty, torch.tensor(sum_x),
+                               torch.arange(M, dtype=torch.int32))
+    assert torch.isneginf(mm[0]).all() and (mt[0] == 0).all()
+    for what, (rm, rt) in list(ref.items()) + [("plain", (pm, pt))]:
+        np.testing.assert_array_equal(np.isneginf(mm.numpy()),
+                                      np.isneginf(rm), err_msg=what)
+        fin = np.isfinite(rm)
+        np.testing.assert_allclose(mm.numpy()[fin], rm[fin], rtol=TOL,
+                                   atol=TOL, err_msg=what)
+        np.testing.assert_allclose(mt.numpy()[fin], rt[fin], rtol=TOL,
+                                   atol=TOL, err_msg=what)
+
+
+def test_query_order_model_argmax_rules():
+    """A NaN VR wins (the first NaN), then the first of equal maxima; one
+    occupied bin or none gives -inf and 0; an empty operand of the Chan
+    merge returns the other one bit for bit, junk statistics and all."""
+    C = 40
+    n = torch.zeros(4, C)
+    mean, m2, sx = torch.zeros(4, C), torch.zeros(4, C), torch.zeros(4, C)
+    # row 0: a mirror-symmetric table, bins 3, 10 and 35 (35 in the second
+    # chunk) holding (n, mean, M2) = (1, 0, 0), (2, 2, 1), (1, 0, 0): the
+    # two boundaries tie exactly
+    for b, c, y, v in ((3, 1.0, 0.0, 0.0), (10, 2.0, 2.0, 1.0),
+                       (35, 1.0, 0.0, 0.0)):
+        n[0, b], mean[0, b], m2[0, b], sx[0, b] = c, y, v, c * b
+    # row 1: one occupied bin; row 2: none
+    n[1, 7], mean[1, 7], sx[1, 7] = 5.0, 2.0, 3.5
+    # row 3: an infinite M2 makes every boundary's VR NaN
+    for b in (1, 2, 33):
+        n[3, b], mean[3, b], m2[3, b], sx[3, b] = 2.0, float(b), 1.0, b
+    m2[3, 2] = float("inf")
+    merit, thr = model_query(n, mean, m2, sx)
+    score, _ = model_scores(n, mean, m2, sx)
+    assert float(score[0, 3]) == float(score[0, 10]) == float(merit[0]) > 0
+    assert float(thr[0]) == 0.5 * (3 + 10)          # the first maximum
+    assert merit[1:3].isneginf().all() and (thr[1:3] == 0).all()
+    assert torch.isnan(merit[3]) and float(thr[3]) == 0.5 * (0.5 + 1.0)
+    rng = np.random.default_rng(1)
+    a = tuple(torch.tensor(rng.normal(0, 3, 50).astype(np.float32))
+              for _ in range(3))
+    a = (a[0].abs() + 1,) + a[1:]
+    junk = (torch.zeros(50), torch.full((50,), 7.0), torch.full((50,), 9.0))
+    for got in (chan_model(a, junk), chan_model(junk, a)):
+        assert all(torch.equal(u, v) for u, v in zip(got, a))
+
+
 def merge_operands(rng, N, F, C):
     """Two table sets whose cells are, in turn, both occupied, occupied on
     one side only and empty on both (with stray means on empty cells, which
@@ -690,48 +861,142 @@ class TestOnCard:
         with pytest.raises(RuntimeError, match="lengths"):
             tht.segment_stats(ones, leaf, N, ones)
 
-    def test_query_kernel(self, card):
-        rng = np.random.default_rng(3)
-        N, F, C = 40, 3, 32
-        tab_y, sum_x = random_tables(rng, N, F, C, occupied=0.4)
+    def _query_holds(self, card, tab_y, sum_x, rows):
+        """Kernel bitwise equal to the float32 model of its order, and
+        against the plain version the same -inf and NaN entries, merit and
+        threshold within 1e-4; one launch a call, a bitwise rerun.
+        Returns (merit, thr) of the kernel."""
         ty = {k: torch.tensor(v, device=card) for k, v in tab_y.items()}
         tsx = torch.tensor(sum_x, device=card)
-        rows = torch.tensor(rng.choice(N, 17, replace=False).astype(np.int32),
-                            device=card)
+        rows = torch.tensor(rows, dtype=torch.int32, device=card)
+        before = _build.LAUNCHES["qo_query_batched"]
         km, kt = qo_query_batched.best_splits_kernel(ty, tsx, rows)
+        assert _build.LAUNCHES["qo_query_batched"] == before + 1
+        mm, mt = model_best_splits(ty, tsx, rows)
+        torch.testing.assert_close(km.cpu(), mm, rtol=0, atol=0,
+                                   equal_nan=True)
+        torch.testing.assert_close(kt.cpu(), mt, rtol=0, atol=0,
+                                   equal_nan=True)
         pm, pt = qo_query_batched.best_splits_plain(ty, tsx, rows)
         assert torch.equal(torch.isneginf(km), torch.isneginf(pm))
+        assert torch.equal(torch.isnan(km), torch.isnan(pm))
         fin = torch.isfinite(pm)
         torch.testing.assert_close(km[fin], pm[fin], rtol=TOL, atol=TOL)
         torch.testing.assert_close(kt[fin], pt[fin], rtol=TOL, atol=TOL)
+        again = qo_query_batched.best_splits_kernel(ty, tsx, rows)
+        assert torch.equal(km.nan_to_num(), again[0].nan_to_num())
+        assert torch.equal(kt.nan_to_num(), again[1].nan_to_num())
+        return km, kt
+
+    @pytest.mark.parametrize("C", [1, 16, 32, 64, 100, 1024])
+    def test_query_kernel(self, card, C):
+        """Random tables (one and two tables a warp, one and several
+        chunks, C off the chunk width), with a table of one occupied bin,
+        an empty one, one whose VR is NaN, and repeated rows."""
+        rng = np.random.default_rng(C)
+        N, F = 40, 3
+        tab_y, sum_x = random_tables(rng, N, F, C, occupied=0.4)
+        for name in ("n", "mean", "m2"):
+            tab_y[name][0] = 0.0
+            tab_y[name][1, 0] = 0.0
+        sum_x[0], sum_x[1, 0] = 0.0, 0.0
+        tab_y["n"][1, 0, C - 1], tab_y["mean"][1, 0, C - 1] = 3.0, 1.0
+        sum_x[1, 0, C - 1] = 1.5
+        if C > 2:
+            tab_y["n"][2, 1, :3] = 2.0
+            tab_y["m2"][2, 1, 1] = np.inf
+        rows = np.concatenate([[0, 1, 2, 2], rng.choice(N, 17,
+                                                        replace=False)])
+        km, kt = self._query_holds(card, tab_y, sum_x, rows)
+        assert torch.isneginf(km[0]).all() and (kt[0] == 0).all()
+        assert torch.isneginf(km[1, 0]) and kt[1, 0] == 0
+        if C > 2:
+            assert torch.isnan(km[2, 1])
+        assert torch.equal(km[2].nan_to_num(), km[3].nan_to_num())
+        N_ = tab_y["n"].shape[0]
         before = _build.LAUNCHES["qo_query_batched"]
         merit, _ = tops.forest_best_splits(
-            ty, tsx, torch.zeros(N, dtype=torch.bool, device=card))
-        assert torch.isneginf(merit).all()
+            {k: torch.tensor(v, device=card) for k, v in tab_y.items()},
+            torch.tensor(sum_x, device=card),
+            torch.zeros(N_, dtype=torch.bool, device=card))
+        assert torch.isneginf(merit).all()          # K = 0: no launch
         assert _build.LAUNCHES["qo_query_batched"] == before
 
-    def test_sketch_compact_kernel(self, card):
-        rng = np.random.default_rng(4)
-        for J, K in ((32, 16), (80, 40)):
-            n = (rng.integers(0, 6, (300, J)) * (rng.random((300, J)) < 0.8)
-                 ).astype(np.float32)
-            planes = [torch.tensor(a, device=card) for a in (
-                n, rng.normal(0, 2, (300, J)).astype(np.float32),
-                (n * rng.uniform(0, 1, (300, J))).astype(np.float32),
-                (n * rng.normal(0, 1, (300, J))).astype(np.float32))]
-            planes = [a.contiguous() for a in tsk.sort_planes(*planes)]
-            bucket = tsk._bucket_ids(planes[0], K)
-            # row 0 with unsorted ids: the kernel's centroid-by-centroid path
-            bucket[0] = torch.flip(bucket[0], [0])
-            before = _build.LAUNCHES["sketch_compact"]
-            k = sketch_compact.bucket_reduce_kernel(*planes, bucket, K)
-            p = sketch_compact.bucket_reduce_plain(*planes, bucket, K)
-            assert _build.LAUNCHES["sketch_compact"] == before + 1
-            assert torch.equal(k[0], p[0])
-            for a, b in zip(k[1:], p[1:]):
-                torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
-            again = sketch_compact.bucket_reduce_kernel(*planes, bucket, K)
-            assert all(torch.equal(a, b) for a, b in zip(k, again))
+    @staticmethod
+    def _fragile_rows(n_sorted, K, integer):
+        """Rows where the kernel's ids may differ from the plain version's:
+        with integer weights (cumw exact in any order) exactly the rows
+        where K / tot and PyTorch's reciprocal(tot) * K give other ids
+        (ROADMAP C12); otherwise also rows holding a centroid whose scaled
+        midpoint lies within a few ulps of an inner bucket edge (the
+        kernel's scan order)."""
+        cumw = torch.cumsum(n_sorted, -1)
+        tot = torch.clamp(cumw[..., -1:], min=1e-30)
+        mid = cumw - 0.5 * n_sorted
+        ids = torch.clamp(xla_int32(mid * (torch.full_like(tot, K) / tot)),
+                          0, K - 1)
+        fragile = ids != sketch_compact.bucket_ids(n_sorted, K)
+        if not integer:
+            c64 = torch.cumsum(n_sorted.double(), -1)
+            x = (c64 - 0.5 * n_sorted.double()) * (K / c64[..., -1:])
+            m = torch.round(x)
+            fragile |= ((x - m).abs() <= 1e-6 * torch.clamp(x.abs(), min=1.0)
+                        ) & (m >= 1) & (m <= K - 1)
+        return fragile.any(-1)
+
+    @pytest.mark.parametrize("J,K,integer", [
+        (2, 2, True), (32, 16, True), (33, 16, True), (64, 32, True),
+        (512, 256, True), (48, 12, True), (32, 16, False)])
+    def test_sketch_compact_kernel(self, card, J, K, integer):
+        """The fused kernel vs ``compact_plain`` on unsorted centroids with
+        tied, +-0.0, NaN and empty prototypes and all-empty rows: n exact
+        (integer weights), the rest within 1e-4, one launch a call, a
+        bitwise rerun; as one plane set and as two (the merge).  Only rows
+        whose ids sit on an integer edge are left out where the kernel's
+        ids may differ (non-integer weights, or K not a power of two)."""
+        rng = np.random.default_rng(J * K)
+        R = 300
+        n = (rng.integers(0, 6, (R, J)) * (rng.random((R, J)) < 0.8)
+             ).astype(np.float32)
+        if not integer:
+            n = (n * rng.uniform(0.1, 2.0, (R, J))).astype(np.float32)
+        n[:5] = 0.0                                  # all-empty rows
+        proto = rng.choice(np.float32([-1.0, -0.0, 0.0, 0.5, 2.0]), (R, J))
+        proto = np.where(rng.random((R, J)) < 0.5, proto,
+                         rng.normal(0, 1, (R, J))).astype(np.float32)
+        sum_x = (n * proto).astype(np.float32)
+        sum_x[5::37, 0] = np.nan
+        planes = [torch.tensor(a, device=card) for a in (
+            n, rng.normal(0, 2, (R, J)).astype(np.float32),
+            (n * rng.uniform(0, 1, (R, J))).astype(np.float32), sum_x)]
+        before = _build.LAUNCHES["sketch_compact"]
+        k = sketch_compact.compact_kernel(planes, K)
+        assert _build.LAUNCHES["sketch_compact"] == before + 1
+        p = sketch_compact.compact_plain(planes, K)
+        keep = torch.ones(R, dtype=torch.bool, device=card)
+        if not integer or K & (K - 1):
+            srt = sketch_compact.sort_planes(*planes)[0]
+            keep = ~self._fragile_rows(srt, K, integer)
+            print(f"J={J} K={K}: {int((~keep).sum())} of {R} rows on an "
+                  f"integer edge left out")
+            assert int(keep.sum()) >= R // 2
+        if integer:
+            assert torch.equal(k[0][keep], p[0][keep])
+        for a, b in zip(k, p):
+            torch.testing.assert_close(a[keep], b[keep], rtol=TOL, atol=TOL,
+                                       equal_nan=True)
+        again = sketch_compact.compact_kernel(planes, K)
+        assert all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                   for a, b in zip(k, again))
+        half = J // 2
+        if half:
+            two = sketch_compact.compact_kernel(
+                [a[:, :half].contiguous() for a in planes], K,
+                [a[:, half:].contiguous() for a in planes])
+            assert _build.LAUNCHES["sketch_compact"] == before + 3
+            assert all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                       for a, b in zip(k, two))
+        assert torch.equal(k[0][:5], torch.zeros_like(k[0][:5]))
 
     @staticmethod
     def _qo_update_holds(card, C, x, y, w, rng):

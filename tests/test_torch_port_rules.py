@@ -126,8 +126,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         qo_query_batched.best_splits_kernel(tab, torch.zeros((4, 3, 8)), z)
     planes = [torch.zeros((4, 8)) for _ in range(4)]
     with pytest.raises(ValueError, match="sketch_compact"):
-        sketch_compact.bucket_reduce_kernel(
-            *planes, torch.zeros((4, 8), dtype=torch.int32), 4)
+        sketch_compact.compact_kernel(planes, 4, planes)
     one = [torch.zeros(8) for _ in range(4)]
     with pytest.raises(ValueError, match="qo_update"):
         qo_update.update_kernel(*one, torch.tensor(1.0), torch.tensor(0.0),

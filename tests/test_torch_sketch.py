@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import forest as jfr
 from repro.core import hoeffding as jht
@@ -24,6 +25,7 @@ from repro.core import serve as jsv
 from repro.core import sketch as jsk
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import sketch_compact as jsc
 from repro_torch import convert
 from repro_torch.core import forest as tfr
 from repro_torch.core import hoeffding as tht
@@ -32,6 +34,7 @@ from repro_torch.core import serve as tsv
 from repro_torch.core import sketch as tsk
 from repro_torch.data import synth
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import sketch_compact
 from tests.helpers import repeat_by_weights
 from tests.test_torch_forest import learn_both
 
@@ -90,6 +93,148 @@ def test_merge_planes_matches_reference():
     to_j = lambda ps: [jnp.asarray(p.numpy()) for p in ps]
     assert_planes_hold(tsk.merge_planes(*a, *b),
                        jsk.merge_planes(*to_j(a), *to_j(b)))
+
+
+# --------------------------------------------------------------------------
+# the compaction kernel's order of work, modelled on the CPU
+# (csrc/sketch_compact.cu: 64-bit keys, a bitonic network, the ids of the
+# reference's operation order)
+# --------------------------------------------------------------------------
+
+def ordered_key(p):
+    """The kernel's ``ordered``: p + 0.0 as an unsigned 32-bit integer
+    (held in int64) whose order is float order, every NaN above +inf."""
+    p = p + 0.0
+    u = p.view(torch.int32).long() & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(torch.isnan(p), 0xFFFFFFFF, u)
+
+
+def bitonic_order(p):
+    """The kernel's sort of the (R, J) prototypes ``p``: keys
+    ``(ordered << 32) | j`` padded with ~0 to a power of two (at least 32,
+    one warp), through the bitonic network the warp runs with
+    ``__shfl_xor_sync`` (and the general kernel in shared memory).
+    Returns the (R, J) source index of each sorted position."""
+    R, J = p.shape
+    P = max(32, 1 << (J - 1).bit_length())
+    keys = np.full((R, P), np.uint64(0xFFFFFFFFFFFFFFFF))
+    keys[:, :J] = (ordered_key(p).numpy().astype(np.uint64) << np.uint64(32)) \
+        | np.arange(J, dtype=np.uint64)
+    lane = np.arange(P)
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j:
+            other = keys[:, lane ^ j]
+            keep_min = ((lane & j) == 0) == ((lane & k) == 0)
+            keys = np.where(keep_min, np.minimum(keys, other),
+                            np.maximum(keys, other))
+            j //= 2
+        k *= 2
+    return torch.from_numpy((keys[:, :J] & np.uint64(0xFFFFFFFF))
+                            .astype(np.int64))
+
+
+SPECIALS = np.array([-1.5, -0.0, 0.0, 1.0, 2.5, np.inf, -np.inf, np.nan,
+                     1e-45, -1e-45, 3.4e38], np.float32)
+
+
+def tied_prototypes(rng, R, J, all_empty):
+    """(n, sum_x) rows whose prototypes repeat (ties), carry +-0.0, NaN,
+    +-inf and subnormals, with empty centroids (+inf keys) and, if asked,
+    rows of empties only."""
+    n = rng.integers(0, 4, (R, J)).astype(np.float32)
+    if all_empty:
+        n[rng.random(R) < 0.5] = 0.0
+    proto = rng.choice(SPECIALS, (R, J))
+    with np.errstate(over="ignore", invalid="ignore"):
+        sum_x = (n * proto).astype(np.float32)
+    sum_x[(n > 0) & np.isnan(proto)] = np.nan
+    return n, sum_x
+
+
+def test_ordered_key_is_the_sort_order():
+    """Unsigned order of the keys = float order with -0.0 == +0.0 and every
+    NaN (either sign) above +inf; equal keys exactly for equal values."""
+    rng = np.random.default_rng(0)
+    vals = np.concatenate([SPECIALS, -SPECIALS, np.float32([
+        np.float32(np.nan) * -1]), rng.normal(0, 1e3, 200).astype(
+        np.float32)]).astype(np.float32)
+    p = torch.tensor(vals)
+    key = ordered_key(p)
+    assert ((key >= 0) & (key <= 0xFFFFFFFF)).all()
+    canon = p + 0.0
+    nan = torch.isnan(canon)
+    for i in range(len(vals)):
+        for j in range(len(vals)):
+            if nan[i] or nan[j]:
+                want = (nan[i] and not nan[j], nan[i] == nan[j])
+            else:
+                want = (bool(canon[i] > canon[j]), bool(canon[i] == canon[j]))
+            assert (bool(key[i] > key[j]), bool(key[i] == key[j])) == want
+    assert torch.equal(torch.sort(key, stable=True).indices,
+                       torch.sort(canon, stable=True).indices)
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1),
+       J=st.sampled_from([1, 2, 31, 32, 33, 64, 512]),
+       all_empty=st.booleans())
+def test_bitonic_network_is_the_stable_sort(seed, J, all_empty):
+    """The kernel's network over (ordered key, index) gives exactly
+    ``torch.sort(stable=True).indices`` of the plain version's keys: ties
+    by index, empties last, NaN after the empties."""
+    rng = np.random.default_rng(seed)
+    n, sum_x = tied_prototypes(rng, 4, J, all_empty)
+    key = tsk.prototypes(t(n), t(sum_x)) + 0.0
+    assert torch.equal(bitonic_order(key),
+                       torch.sort(key, dim=-1, stable=True).indices)
+
+
+@pytest.mark.parametrize("J,k", [(2, 4), (32, 16), (48, 16), (64, 32)])
+def test_compact_plain_matches_reference(J, k):
+    """``compact_plain`` (the CPU path of ``compact``) against the
+    reference's ``compact_planes`` (jnp) and, for the reduction stage,
+    ``sketch_compact_pallas`` in interpret mode on the same sorted planes
+    and ids; one plane set, and the same centroids as two sets."""
+    rng = np.random.default_rng(J * k)
+    planes = random_planes(rng, (4, 3, J))
+    port = sketch_compact.compact(list(map(t, planes)), k)
+    assert_planes_hold(port, jsk.compact_planes(*map(jnp.asarray, planes),
+                                                k))
+    half = J // 2
+    split = sketch_compact.compact([t(a[..., :half]) for a in planes], k,
+                                   [t(a[..., half:]) for a in planes])
+    for a, b in zip(split, port):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    # the Pallas body sums each bucket as a masked reduction of the whole
+    # row, so one NaN sum_x poisons every bucket of its row (ROADMAP C10):
+    # the interpret comparison runs on finite sum_x
+    planes = planes[:3] + (np.nan_to_num(planes[3]),)
+    srt = jsk.sort_planes(*map(jnp.asarray, planes))
+    bucket = jsk._bucket_ids(srt[0], k)
+    dense = jsc.sketch_compact_pallas(
+        jsc.pack_compact_planes(*srt, bucket, tile_r=8), k_out=k, tile_r=8,
+        interpret=True)
+    ref = jsc.unpack_compact_planes(dense, srt[0].shape[:-1], k)
+    mine = sketch_compact.bucket_reduce_plain(
+        *(t(np.asarray(a)) for a in srt), t(np.asarray(bucket)), k)
+    assert_planes_hold(mine, ref)
+
+
+def test_compact_plain_holds_reference_merge_on_both_backends():
+    """``compact_plain`` of two sketches = the reference's ``sketch_merge``
+    on jnp and interpret (finite sum_x: ROADMAP C10)."""
+    rng = np.random.default_rng(9)
+    a, b = ([np.nan_to_num(np.asarray(p)) for p in tsk.compact_planes(
+        *map(t, random_planes(rng, (6, 2, 20))), 16)] for _ in range(2))
+    port = sketch_compact.compact_plain(list(map(t, a)), 16, list(map(t, b)))
+    ry = lambda ps: ({"n": jnp.asarray(ps[0]), "mean": jnp.asarray(ps[1]),
+                      "m2": jnp.asarray(ps[2])}, jnp.asarray(ps[3]))
+    for bk in ("jnp", "interpret"):
+        assert_planes_hold(port, tables(jops.sketch_merge(*ry(a), *ry(b),
+                                                          backend=bk)), bk)
 
 
 def batch_with_edges(rng, B, F, n_tables):
