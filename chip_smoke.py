@@ -34,7 +34,11 @@ Phases:
    sum of |terms| and to the table's variance, since sums of 1e6 mixed-sign
    terms cancel -- identical -inf patterns, a threshold differing only at
    a near-tie; the Chan merge bitwise), and both timed (median of
-   CUDA-event-timed repeats); both absorbs run twice and the runs
+   CUDA-event-timed repeats); the route as the learn path calls it
+   (``ops.forest_route`` on the (T, M) arrays, bounded by max_depth) one
+   launch and no other device op a call, and again on the trees padded to
+   M = 16,383 nodes (records read from global memory), the same ids; the
+   single-table query rerun bitwise; both absorbs run twice and the runs
    compared bitwise, the forest absorb also on a fresh forest's first batch (every
    row in one of the 16 roots, 4,096 rows a leaf: several pieces a leaf),
    the single-table absorb also with all 1e6 rows in one bin; the sketch
@@ -51,7 +55,8 @@ Phases:
    the live ``forest.predict`` bit for bit;
 7. where the time goes: 8 mid-growth steps (after 8 warm-up batches)
    timed plain and under torch.profiler, printing the device-busy share,
-   the port's kernels, the top device kernels and host operations, and
+   the port's kernels, the launches and host syncs a step, the top
+   device kernels and host operations, and
    the tables each split query covered with its byte bound (for both
    forests);
 8. sketch forest end to end: 32 batches with counts reset, falling MSE, a
@@ -97,6 +102,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 T, M, F, C, DEPTH, B = 16, 1023, 16, 64, 12, 4096
 KS = 16                        # sketch centroids per (leaf, feature)
+ROUTE_BIG_M = 16383            # nodes a tree: past a block's shared memory
 QO_BINS, QO_ROWS = 1024, 1_000_000
 DP_SHARDS, DP_SYNC, DP_SKETCH_SHARDS = 4, 2, 2
 WARM_BATCHES, STREAM_BATCHES, SERVE_ROWS = 8, 32, 8192
@@ -166,6 +172,27 @@ def _device_ms(fn, reps=10):
             return sum(e.self_device_time_total for e in events) / 1e3 / reps
     raise AssertionError("the profiler recorded no device time for a "
                          f"window of {reps} calls, three times")
+
+
+def forest_config(**tree):
+    """The forests' configuration (``tree``: further ``HTRConfig`` fields)."""
+    from repro_torch.core import forest as fr
+    from repro_torch.core import hoeffding as ht
+    return fr.ForestConfig(
+        tree=ht.HTRConfig(n_features=F, max_nodes=M, n_bins=C,
+                          grace_period=200, max_depth=DEPTH, **tree),
+        n_trees=T, lam=6.0, subspace=0.7)
+
+
+def stream_batches(seed, dev):
+    """The forests' stream: STREAM_BATCHES (X, y) batches of B rows."""
+    import torch
+    from repro_torch.data import synth
+    n_rows = STREAM_BATCHES * B
+    X_all, y_all = synth.piecewise_regression(n_rows, F, seed=seed)
+    return [(torch.as_tensor(X_all[i:i + B], device=dev),
+             torch.as_tensor(y_all[i:i + B], device=dev))
+            for i in range(0, n_rows, B)]
 
 
 def _bound(nbytes, flops):
@@ -281,6 +308,11 @@ def _report(prof, n, wall, plain_wall, what, tag):
         print(f"{tag} device time of the {wrapper} wrapper: "
               f"{ms / count:.4f} ms per call (its kernels together), "
               f"{count / n:.1f} calls each")
+    host = {e.key: e.count for e in ev}
+    print(f"{tag} host: {host.get('cudaLaunchKernel', 0) / n:.1f} "
+          f"cudaLaunchKernel and "
+          f"{host.get('cudaStreamSynchronize', 0) / n:.1f} "
+          f"cudaStreamSynchronize each", flush=True)
     print(f"{tag} top device kernels (ms each, calls each):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f}  "
@@ -357,6 +389,58 @@ def _absorb_first_batch(cfg, batches, seed, dev):
           f"{ms:.4f} ms a call with its sort", flush=True)
 
 
+def _route_row(trees, Xk):
+    """Phase 3: the route as the learn path calls it (``ops.forest_route``
+    on the (T, M) arrays, bounded by max_depth) is one launch and no other
+    device op; its ids against the plain version; the same trees padded
+    with unreachable leaves to M = ROUTE_BIG_M (records past a block's
+    shared memory: read from global memory) give the same ids.  Returns
+    the kernel's row and ids."""
+    import torch
+    from repro_torch.kernels import _build, qo_route
+    from repro_torch.kernels import ops as kops
+    arrays = [trees[k] for k in ("feature", "threshold", "child", "is_leaf")]
+    call = lambda: kops.forest_route(*arrays, Xk, depth=DEPTH)
+    before = _build.LAUNCHES["qo_route"]
+    ops = _device_kernels(call)
+    if _build.LAUNCHES["qo_route"] != before + 1 or len(ops) != 1:
+        raise AssertionError(f"qo_route: a call ran {ops} and "
+                             f"{_build.LAUNCHES['qo_route'] - before} "
+                             f"launches, not the kernel alone")
+    ids = call()
+    if not torch.equal(ids, qo_route.route_plain(*arrays, Xk, DEPTH)):
+        raise AssertionError("qo_route: leaf ids differ from the plain "
+                             "version")
+    pad = ROUTE_BIG_M - M
+    big = [torch.cat([a, torch.full((T, pad) + a.shape[2:], fill,
+                                    dtype=a.dtype, device=a.device)], 1)
+           for a, fill in zip(arrays, (0, 0.0, -1, True))]
+    if not torch.equal(kops.forest_route(*big, Xk, depth=DEPTH), ids):
+        raise AssertionError(f"qo_route: the trees padded to M = "
+                             f"{ROUTE_BIG_M} route elsewhere")
+    # bytes: the four arrays' allocated nodes (17 B each; the slots past
+    # n_nodes are never reached), X, the ids; operations: a compare and a
+    # select a ply actually walked
+    nodes = int(trees["n_nodes"].sum())
+    plies = int(torch.gather(trees["depth"], 1, ids.long()).sum())
+    bound, by = _bound(nodes * 17 + Xk.numel() * 4 + T * B * 4, plies * 2)
+    row = dict(
+        name="qo_route", route="cuda",
+        source="src/repro_torch/csrc/qo_route.cu",
+        replaces="src/repro/kernels/qo_route.py:151", max_abs_err=0.0,
+        ms=_time_ms(call),
+        plain_ms=_time_ms(lambda: qo_route.route_plain(*arrays, Xk, DEPTH)),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"[3] qo_route: one launch and no other device op a call "
+          f"({ops[0][:40]}), ids exact under the max_depth bound "
+          f"({DEPTH}; deepest leaf {int(trees['depth'].max())}, {nodes} "
+          f"nodes allocated), and at "
+          f"M = {ROUTE_BIG_M} (global-memory records); the call "
+          f"{row['ms']:.4f} ms, device {_device_ms(call):.4f} ms "
+          f"(bound {bound:.6f} ms)", flush=True)
+    return row, ids
+
+
 def _sketch_inputs(scfg, sbatches, seed, dev):
     """The sketch forest after 8 learned batches, absorbing the next one:
     its trees, the batch's folded leaf ids ``gl``, weights ``w`` and
@@ -374,8 +458,7 @@ def _sketch_inputs(scfg, sbatches, seed, dev):
     Xk, yk = sbatches[WARM_BATCHES]
     leaf = kops.forest_route(trees["feature"], trees["threshold"],
                              trees["child"], trees["is_leaf"], Xk,
-                             depth=ht.realized_depth(scfg.tree,
-                                                     trees["depth"]))
+                             depth=scfg.tree.max_depth)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     w = torch.randint(0, 7, (T * B,), generator=gen, device=dev,
@@ -648,9 +731,15 @@ def _qo_rows(seed, dev):
         ms=_time_ms(lambda: qo_query.best_kernel(*planes)),
         plain_ms=_time_ms(lambda: qo_query.best_plain(*planes)),
         bound_ms=bound, bound_by=by, library_ms=None))
+    again = qo_query.best_kernel(*planes)
+    if not all(torch.equal(a.nan_to_num(), b.nan_to_num())
+               for a, b in zip(k, again)):
+        raise AssertionError("qo_query: a rerun differs")
     print(f"[3] qo_query: C={QO_BINS}, {int((planes[0] > 0).sum())} occupied "
-          f"bins, threshold {float(k[2][0]):.5f}, max abs err {err:.3g}",
-          flush=True)
+          f"bins, threshold {float(k[2][0]):.5f}, max abs err {err:.3g}, "
+          f"rerun bitwise equal; {rows[-1]['ms']:.4f} ms a call, device "
+          f"{_device_ms(lambda: qo_query.best_kernel(*planes)):.4f} ms "
+          f"(bound {bound:.7f} ms)", flush=True)
     return rows
 
 
@@ -1049,10 +1138,9 @@ def main(argv=None) -> int:
         return 2
     import numpy as np
     from repro_torch.core import forest as fr
-    from repro_torch.core import hoeffding as ht
     from repro_torch.core import serve as sv
     from repro_torch.data import synth
-    from repro_torch.kernels import _build, qo_route, qo_update_leaves
+    from repro_torch.kernels import _build, qo_update_leaves
     from repro_torch.kernels import ops as kops
 
     dev = torch.device("cuda", 0)
@@ -1077,20 +1165,9 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"    {name}: {line.strip()}")
 
-    cfg = fr.ForestConfig(
-        tree=ht.HTRConfig(n_features=F, max_nodes=M, n_bins=C,
-                          grace_period=200, max_depth=DEPTH),
-        n_trees=T, lam=6.0, subspace=0.7)
-    n_rows = STREAM_BATCHES * B
-    X_all, y_all = synth.piecewise_regression(n_rows, F, seed=args.seed)
-    batches = [(torch.as_tensor(X_all[i:i + B], device=dev),
-                torch.as_tensor(y_all[i:i + B], device=dev))
-               for i in range(0, n_rows, B)]
-    scfg = fr.ForestConfig(
-        tree=ht.HTRConfig(n_features=F, max_nodes=M, n_bins=C,
-                          grace_period=200, max_depth=DEPTH,
-                          observer_backend="sketch", sketch_k=KS),
-        n_trees=T, lam=6.0, subspace=0.7)
+    cfg = forest_config()
+    batches = stream_batches(args.seed, dev)
+    scfg = forest_config(observer_backend="sketch", sketch_k=KS)
     sbatches = [(torch.exp(Xb), yb) for Xb, yb in batches]
 
     # ---- 3. per kernel at the full-width shapes -------------------------
@@ -1099,28 +1176,8 @@ def main(argv=None) -> int:
         state, _ = fr.update(cfg, state, Xb, yb, device=dev)
     trees = state["trees"]
     Xk, yk = batches[WARM_BATCHES]
-    depth = ht.realized_depth(cfg.tree, trees["depth"])
-    rows = []
-
-    folded = qo_route.fold_route_tables(trees["feature"], trees["threshold"],
-                                        trees["child"], trees["is_leaf"])
-    route_k = qo_route.route_kernel(*folded, Xk, T, M, depth)
-    route_p = qo_route.route_plain(*folded, Xk, T, M, depth)
-    if not torch.equal(route_k, route_p):
-        raise AssertionError("qo_route: leaf ids differ from the plain "
-                             "version")
-    nbytes = Xk.numel() * 4 + T * M * 16 + T * B * 4
-    bound, by = _bound(nbytes, T * B * depth * 2)
-    rows.append(dict(
-        name="qo_route", route="cuda",
-        source="src/repro_torch/csrc/qo_route.cu",
-        replaces="src/repro/kernels/qo_route.py:151",
-        max_abs_err=0.0,
-        ms=_time_ms(lambda: qo_route.route_kernel(*folded, Xk, T, M, depth)),
-        plain_ms=_time_ms(lambda: qo_route.route_plain(*folded, Xk, T, M,
-                                                       depth)),
-        bound_ms=bound, bound_by=by, library_ms=None))
-    print(f"[3] qo_route: ids exact, depth {depth}", flush=True)
+    row, route_k = _route_row(trees, Xk)
+    rows = [row]
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)

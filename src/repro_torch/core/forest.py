@@ -2,7 +2,7 @@
 ``core/forest.py``, DESIGN.md §5).
 
 T member trees are one program over a leading tree axis: every routing
-pass is one ``forest_route`` over the folded T*M node axis, the absorb is
+pass is one ``forest_route`` over the (T, M) node arrays, the absorb is
 one ``forest_update`` (or, under the sketch observer, one
 ``sketch_update``) over the folded T*M table axis, and the split query
 one compacted ``forest_best_splits`` over the attempting leaves of the
@@ -141,11 +141,11 @@ def init_forest(cfg: ForestConfig, seed: int = 0, *, device=None,
 
 
 def _route_all(cfg: ForestConfig, trees, X):
-    """(T, B) leaf ids: one folded route, trimmed to the realized depth."""
+    """(T, B) leaf ids: one route of every tree, bounded by ``max_depth``
+    (a row stops at its leaf, so no host read of the realized depth)."""
     return kops.forest_route(trees["feature"], trees["threshold"],
                              trees["child"], trees["is_leaf"], X,
-                             depth=ht.realized_depth(cfg.tree,
-                                                     trees["depth"]))
+                             depth=cfg.tree.max_depth)
 
 
 def _member_predictions(cfg: ForestConfig, trees, X):
@@ -195,13 +195,13 @@ def _fold(a, T, M):
 def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
     """Route all T members and reduce the batch's per-leaf target stats.
 
-    One folded route, one sort of the global leaf ids ``t*M + leaf`` and
-    one flat segment reduction over them.  w: (T, B).  Returns ``(gl,
-    leaf, batch_leaf, rows)``: the (T*B,) folded ids, the (T, B) per-tree
-    ids, the (T, M) Stats of the batch -- the shard-local quantities of
-    the data-parallel protocol, which accumulates them in a delta instead
-    of the trees -- and the ``(order, offsets)`` of the sort, which the
-    absorb walks again."""
+    One route of all T trees, one sort of the global leaf ids
+    ``t*M + leaf`` and one flat segment reduction over them.  w: (T, B).
+    Returns ``(gl, leaf, batch_leaf, rows)``: the (T*B,) folded ids, the
+    (T, B) per-tree ids, the (T, M) Stats of the batch -- the shard-local
+    quantities of the data-parallel protocol, which accumulates them in a
+    delta instead of the trees -- and the ``(order, offsets)`` of the sort,
+    which the absorb walks again."""
     T, M = trees["feature"].shape
     leaf = _route_all(cfg, trees, X)
     gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None] * M

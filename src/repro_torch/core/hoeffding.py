@@ -20,10 +20,10 @@ implementation, as the reference shares it through ``vmap``.  JAX's
 dropped scatters (``.at[M].set(..., mode="drop")``) become explicit masks:
 only the leaves that split, and their children, are written (ROADMAP C4).
 
-Host reads, each a sync, accepted in this first slice: the realized
-depth that trims the routing sweep, ``attempt.any()`` (the reference's
-``lax.cond``), the compacted query's K and the list of splitting leaves
-(``bincount`` and ``segment_reduce`` in the index bookkeeping add more).
+Host reads, each a sync, accepted in this first slice: ``attempt.any()``
+(the reference's ``lax.cond``), the compacted query's K and the list of
+splitting leaves (``bincount`` and ``segment_reduce`` in the index
+bookkeeping add more).
 
 QO tables (``ao_y``, ``ao_sum_x``) are updated IN PLACE: ``update``
 consumes the state it is given (under the sketch the absorb rebinds new
@@ -149,16 +149,11 @@ def as_batch(X, y, w, dev):
     return X.contiguous(), y.contiguous(), w.contiguous()
 
 
-def realized_depth(cfg: HTRConfig, depth) -> int:
-    """Deepest node of the state, capped at ``max_depth`` (one host read):
-    routing more plies than this only repeats leaf self-loops."""
-    return min(cfg.max_depth, int(depth.max()))
-
-
 def _route(cfg: HTRConfig, state: TreeState, X):
+    # bounded by max_depth: a row stops at its leaf, so no host read of the
+    # realized depth is needed
     return kops.route(state["feature"], state["threshold"], state["child"],
-                      state["is_leaf"], X,
-                      depth=realized_depth(cfg, state["depth"]))
+                      state["is_leaf"], X, depth=cfg.max_depth)
 
 
 def predict(cfg: HTRConfig, state: TreeState, X, *, device=None):

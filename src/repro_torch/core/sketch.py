@@ -173,7 +173,10 @@ def from_batch_planes(leaf, X, y, w, n_tables: int, k: int):
     cumw = torch.cumsum(w_s, -1) - offset[safe]
     tot = torch.clamp(tot_l[safe], min=1e-30)
     mid = cumw - 0.5 * w_s
-    bucket = torch.clamp(xla_int32(mid * (k / tot)), 0, k - 1)
+    # one division, as the reference takes it: a Python number over a
+    # tensor would be a reciprocal and a product in PyTorch
+    bucket = torch.clamp(xla_int32(mid * (torch.full_like(tot, k) / tot)),
+                         0, k - 1)
     bucket = torch.where(valid_s, bucket, 0)
 
     # one flat segmented sum over (feature, table, bucket): that key is

@@ -58,7 +58,7 @@
 // fixed, so a rerun is bitwise equal.  With integer weights below 2^24
 // every cumulative weight is exact in any order, so the ids and the
 // bucket n equal the plain version's (sort_planes -> bucket_ids ->
-// bucket_reduce_plain) bit for bit when K is a power of two (ROADMAP C12).
+// bucket_reduce_plain) bit for bit: both divide K / tot once.
 //
 // What bounds it on the H100: bytes -- four (R, J) planes read once and
 // four (R, K) planes written once (201 MB at R = 261,888, J = 32, K = 16:

@@ -7,10 +7,11 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v
          -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-``<hash>`` covers the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  ``--use_fast_math`` is deliberately
-absent: bin ids, route decisions and NaN handling must follow IEEE f32
-(IEEE division, no flush-to-zero, NaN compares false).  Builds happen at
+``<hash>`` covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused.  ``--use_fast_math`` is deliberately absent: bin ids, route
+decisions and NaN handling must follow IEEE f32 (IEEE division, no
+flush-to-zero, NaN compares false).  Builds happen at
 first use on a CUDA tensor, or all at once, one nvcc process per source
 started together, through :func:`build`.  Nothing here runs at import.
 
@@ -58,9 +59,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where ``name``'s library lands: keyed by its source and the flags."""
+    """Where ``name``'s library lands: keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -128,11 +128,8 @@ def forest_route(feature, threshold, child, is_leaf, X, *, depth: int):
     feature/threshold/is_leaf: (T, M); child: (T, M, 2), -1 at leaves.
     ``depth``: any bound >= the deepest realized leaf gives the same ids
     (leaves self-loop)."""
-    T, M = feature.shape
-    feat, thr, left, right = qo_route.fold_route_tables(
-        feature, threshold, child, is_leaf)
-    return qo_route.forest_route_folded(feat, thr, left, right,
-                                        X.contiguous(), T, M, int(depth))
+    return qo_route.forest_route(feature, threshold, child, is_leaf,
+                                 X.contiguous(), int(depth))
 
 
 def route(feature, threshold, child, is_leaf, X, *, depth: int):

@@ -17,8 +17,10 @@ merit 0 and valid 0 where the best score is not finite.
 
 :func:`best` launches ``csrc/qo_query.cu`` on a CUDA tensor and runs
 :func:`best_plain` (the TPU kernel's Hillis-Steele prefix merge over all
-bins, op for op) on a CPU one.  The kernel skips empty bins in its merges
-(the identity), so the two differ by f32 rounding only.
+bins, op for op) on a CPU one.  The kernel runs the batched query's order
+(a Kogge-Stone prefix merge within chunks of 32 bins, the chunk totals
+folded left to right, an empty operand an exact identity), so the two
+differ by f32 rounding only.
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ from repro_torch.kernels import _build
 __all__ = ["scores_plain", "argmax_nan_first", "best_plain", "best_kernel",
            "best", "SplitResult", "split", "MAX_BINS"]
 
-#: The kernel keeps two (C,) rows and its scan scratch in one block's
-#: shared memory: 8 C + 20 KB must stay within the 227 KB a block can use.
+#: Largest C the kernel takes: its per-chunk records (52 bytes a chunk of
+#: 32 bins, 26 KB here) stay within a block's 48 KB of shared memory.
 MAX_BINS = 16384
 
 

@@ -1,14 +1,18 @@
 """Batched routing of B rows through T trees: the kernel and its plain version.
 
-Replaces ``src/repro/kernels/qo_route.py::qo_route_pallas``.  The tree
-axis folds into global node ids (tree t's node j is ``t*M + j``) and
-leaves self-loop, so one transition step is a no-op at settled rows:
+Replaces ``src/repro/kernels/qo_route.py::qo_route_pallas``.  Both take the
+tree arrays as the state holds them -- ``feature``, ``threshold``,
+``is_leaf`` (T, M) and ``child`` (T, M, 2) with -1 at leaves -- and give
+the (T, B) int32 local leaf ids after at most ``plies`` steps of
 
     node' = x[feature[node]] <= threshold[node] ? left[node] : right[node]
 
-with NaN going right.  :func:`forest_route_folded` launches
-``csrc/qo_route.cu`` on a CUDA tensor and runs :func:`route_plain` (the
-gather sweep of the reference's ``ops._forest_route_jnp``) on a CPU one.
+with NaN going right and a leaf a self-loop, so any ``plies`` at least the
+deepest leaf's depth gives the same ids.  :func:`forest_route` launches
+``csrc/qo_route.cu`` (one launch, nothing else on the device) on a CUDA
+tensor and runs :func:`route_plain` (the reference's gather sweep
+``ops._forest_route_jnp`` over tables folded by :func:`fold_route_tables`)
+on a CPU one.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["fold_route_tables", "route_plain", "route_kernel",
-           "forest_route_folded"]
+           "forest_route"]
 
 
 def fold_route_tables(feature, threshold, child, is_leaf):
@@ -44,9 +48,14 @@ def fold_route_tables(feature, threshold, child, is_leaf):
             right.to(torch.int32).contiguous())
 
 
-def route_plain(feat, thr, left, right, X, T: int, M: int, plies: int):
-    """Plain PyTorch sweep: (T, B) local leaf ids after ``plies`` steps."""
+def route_plain(feature, threshold, child, is_leaf, X, plies: int):
+    """Plain PyTorch sweep over the folded tables: (T, B) local leaf ids.
+    Stops early once every row sits at a leaf (one host read a ply)."""
+    T, M = feature.shape
     B, F = X.shape
+    feat, thr, left, right = fold_route_tables(feature, threshold, child,
+                                               is_leaf)
+    leaf = is_leaf.reshape(-1)
     dev = X.device
     xf = X.reshape(-1)
     cols = (torch.arange(B, device=dev) * F).repeat(T)             # (T*B,)
@@ -54,6 +63,8 @@ def route_plain(feat, thr, left, right, X, T: int, M: int, plies: int):
     node = offs.expand(T, B).reshape(-1)
     feat, left, right = feat.long(), left.long(), right.long()
     for _ in range(plies):
+        if bool(leaf[node].all()):
+            break
         xv = xf[cols + feat[node]]
         node = torch.where(xv <= thr[node], left[node], right[node])
     return (node.reshape(T, B) - offs).to(torch.int32)
@@ -68,33 +79,34 @@ def _launcher():
     return fn
 
 
-def route_kernel(feat, thr, left, right, X, T: int, M: int, plies: int):
+def route_kernel(feature, threshold, child, is_leaf, X, plies: int):
     """Launch ``csrc/qo_route.cu``: (T, B) int32 local leaf ids."""
+    T, M = feature.shape
     B, F = X.shape
-    for name, t, dt in (("feature", feat, torch.int32),
-                        ("threshold", thr, torch.float32),
-                        ("left", left, torch.int32),
-                        ("right", right, torch.int32),
-                        ("X", X, torch.float32)):
+    for name, t, dt, shape in (("feature", feature, torch.int32, (T, M)),
+                               ("threshold", threshold, torch.float32,
+                                (T, M)),
+                               ("child", child, torch.int32, (T, M, 2)),
+                               ("is_leaf", is_leaf, torch.bool, (T, M)),
+                               ("X", X, torch.float32, (B, F))):
         if not t.is_cuda or t.device != X.device or t.dtype != dt \
-                or not t.is_contiguous():
+                or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"qo_route: {name} must be a contiguous {dt} "
-                             f"tensor on {X.device}")
-    if feat.numel() != T * M:
-        raise ValueError(f"qo_route: {feat.numel()} nodes, expected {T * M}")
+                             f"{shape} tensor on {X.device}")
     out = torch.empty((T, B), dtype=torch.int32, device=X.device)
+    if T * B == 0:
+        return out
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = _launcher()(feat.data_ptr(), thr.data_ptr(), left.data_ptr(),
-                     right.data_ptr(), X.data_ptr(), out.data_ptr(),
-                     T, M, B, F, plies, stream)
+    rc = _launcher()(feature.data_ptr(), threshold.data_ptr(),
+                     child.data_ptr(), is_leaf.data_ptr(), X.data_ptr(),
+                     out.data_ptr(), T, M, B, F, plies, stream)
     _build.check(rc, "qo_route")
     _build.LAUNCHES["qo_route"] += 1
     return out
 
 
-def forest_route_folded(feat, thr, left, right, X, T: int, M: int,
-                        plies: int):
+def forest_route(feature, threshold, child, is_leaf, X, plies: int):
     """The plain version on a CPU tensor, else the kernel (or a raise)."""
     if X.device.type == "cpu":
-        return route_plain(feat, thr, left, right, X, T, M, plies)
-    return route_kernel(feat, thr, left, right, X, T, M, plies)
+        return route_plain(feature, threshold, child, is_leaf, X, plies)
+    return route_kernel(feature, threshold, child, is_leaf, X, plies)

@@ -63,15 +63,14 @@ def sort_planes(n, mean, m2, sum_x):
 
 def bucket_ids(n_sorted, k_out: int):
     """int32 rank bucket of each sorted centroid: its cumulative-weight
-    midpoint scaled to ``k_out`` buckets, clipped.  (PyTorch evaluates
-    ``k_out / tot`` as ``reciprocal(tot) * k_out``; the kernel divides, as
-    the reference does -- the same value for a power-of-two ``k_out``,
-    ROADMAP C12.)"""
+    midpoint scaled to ``k_out`` buckets, clipped.  ``k_out / tot`` is one
+    division, as the reference and the kernel take it (a Python number
+    over a tensor would be a reciprocal and a product in PyTorch)."""
     cumw = torch.cumsum(n_sorted, -1)
     tot = torch.clamp(cumw[..., -1:], min=1e-30)
     mid = cumw - 0.5 * n_sorted
-    return torch.clamp(xla_int32(mid * (k_out / tot)), 0,
-                       k_out - 1).to(torch.int32)
+    return torch.clamp(xla_int32(mid * (torch.full_like(tot, k_out) / tot)),
+                       0, k_out - 1).to(torch.int32)
 
 
 def bucket_reduce_plain(n, mean, m2, sum_x, bucket, k_out: int):

@@ -92,6 +92,26 @@ def test_route_plain_matches_reference(B):
     np.testing.assert_array_equal(deeper, port)
 
 
+def test_route_plain_stops_early_under_a_max_depth_bound():
+    """The learn and predict paths bound the route by ``max_depth`` (no
+    host read of the realized depth): the plain sweep stops once every row
+    sits at a leaf, so the ids under the default bound (12) and under a
+    bound of 10**9 plies are the reference's at the realized depth."""
+    rng = np.random.default_rng(5)
+    T, M, F, B = 4, 63, 4, 200
+    feature, thr, child, is_leaf, depth = random_trees(rng, T, M, F,
+                                                       [0, 3, 12, 30])
+    X = rows_with_extremes(rng, B, F)
+    d = int(depth.max())
+    assert d < 12
+    ref, _ = route_both(feature, thr, child, is_leaf, X, d)
+    trees = [torch.tensor(a) for a in (feature, thr, child, is_leaf)]
+    for bound in (12, 10**9):
+        port = tops.forest_route(*trees, torch.tensor(X), depth=bound)
+        for b in BACKENDS:
+            np.testing.assert_array_equal(port.numpy(), ref[b], err_msg=b)
+
+
 def test_route_single_tree_view_and_chain():
     """A max-depth chain tree through the single-tree ``route``."""
     M, F = 15, 2
@@ -523,11 +543,12 @@ def chan_model(a, b):
 
 def model_scores(n, mean, m2, sum_x):
     """(R, C) tables -> per-bin (score, cand), (R, C) each, in the
-    kernel's order: per chunk a Kogge-Stone prefix merge, the earlier
-    chunks' aggregate merged in on the left, the complement by
-    subtraction with one reciprocal of the total's count (and of its
-    max with 1) a table; score -inf where the bin has no valid
-    boundary."""
+    kernels' order (both queries): per chunk a Kogge-Stone prefix merge,
+    the earlier chunks' aggregate merged in on the left, the complement
+    by subtraction with one reciprocal of the total's count (and of its
+    max with 1) a table; score -inf where the bin has no valid boundary;
+    cand at every bin as the plain version defines it (no occupied bin
+    after: bin C - 1's prototype)."""
     R, C = n.shape
     W = 16 if C <= 16 else 32
     nch = -(-C // W)
@@ -578,7 +599,7 @@ def model_scores(n, mean, m2, sum_x):
     nxt = torch.cat([after[:, 1:], torch.full((R, 1), Cp)], 1)
     ok = (last >= 0) & (nxt < Cp) & (idx < C)
     cand = 0.5 * (torch.gather(proto, 1, last.clamp(min=0))
-                  + torch.gather(proto, 1, nxt.clamp(max=Cp - 1)))
+                  + torch.gather(proto, 1, nxt.clamp(max=C - 1)))
     score = torch.where(ok, vr, float("-inf"))
     return score[:, :C], cand[:, :C]
 
@@ -596,6 +617,23 @@ def model_query(n, mean, m2, sum_x):
     thr = torch.where(merit == float("-inf"), 0.0,
                       torch.gather(cand, 1, best)[:, 0])
     return merit, thr
+
+
+def model_best(n, mean, m2, sum_x):
+    """One (C,) table -> (score, cand, result) as ``csrc/qo_query.cu``
+    computes them: :func:`model_scores`' rows, the argmax a NaN first,
+    then the larger score, then the lower bin, and ``result = [cand,
+    merit, valid]`` at it (merit 0 and valid 0 where not finite)."""
+    score, cand = model_scores(n[None], mean[None], m2[None], sum_x[None])
+    score, cand = score[0], cand[0]
+    nan = torch.isnan(score)
+    top = torch.where(nan, float("-inf"), score).amax()
+    b = int(torch.argmax(nan.int())) if bool(nan.any()) \
+        else int(torch.argmax((score == top).int()))
+    valid = bool(torch.isfinite(score[b]))
+    result = torch.stack([cand[b], score[b] if valid else torch.tensor(0.0),
+                          torch.tensor(float(valid))])
+    return score, cand, result
 
 
 def model_best_splits(tab_y, tab_sum_x, rows):
@@ -667,6 +705,56 @@ def test_query_order_model_argmax_rules():
     junk = (torch.zeros(50), torch.full((50,), 7.0), torch.full((50,), 9.0))
     for got in (chan_model(a, junk), chan_model(junk, a)):
         assert all(torch.equal(u, v) for u, v in zip(got, a))
+
+
+def single_table(rng, C, occupied):
+    """One (C,) table with ``occupied`` bins of integer weight."""
+    n = np.zeros(C, np.float32)
+    n[rng.choice(C, occupied, replace=False)] = rng.integers(1, 9, occupied)
+    mean = np.where(n > 0, rng.normal(0, 3, C), 0).astype(np.float32)
+    m2 = np.where(n > 1, rng.uniform(0, 2, C), 0).astype(np.float32)
+    sum_x = (n * (np.arange(C) + rng.uniform(0, 1, C))).astype(np.float32)
+    return n, mean, m2, sum_x
+
+
+@pytest.mark.parametrize("C,occupied", [(1, 1), (16, 0), (16, 1), (33, 20),
+                                        (64, 40), (64, 64)])
+def test_single_query_order_model_matches_reference(C, occupied):
+    """The single-table kernel's order (modelled) against the TPU kernel in
+    interpret mode (its (C,) rows and ``ops.qo_best_split``), the
+    reference's ``core.qo.best_split`` and the port's plain version: the
+    same -inf entries and validity, scores, thresholds and merit within
+    1e-4."""
+    from repro.core import qo as jqo
+    from repro.kernels import ref as jref
+    from repro.kernels.qo_query import qo_query_pallas
+    n, mean, m2, sum_x = single_table(np.random.default_rng(C + occupied),
+                                      C, occupied)
+    ms, mc, mr = model_best(*map(torch.tensor, (n, mean, m2, sum_x)))
+    table = dict(jqo.init(C, 1.0), sum_x=jnp.asarray(sum_x),
+                 y={"n": jnp.asarray(n), "mean": jnp.asarray(mean),
+                    "m2": jnp.asarray(m2)})
+    rows = np.asarray(qo_query_pallas(jref.pack_table(table)[0],
+                                      interpret=True))
+    ps, pc, pr = qo_query.best_plain(*map(torch.tensor,
+                                          (n, mean, m2, sum_x)))
+    for what, (rs, rc) in (("interpret", rows[:2]),
+                           ("plain", (ps.numpy(), pc.numpy()))):
+        np.testing.assert_array_equal(np.isneginf(ms.numpy()),
+                                      np.isneginf(rs), err_msg=what)
+        fin = np.isfinite(rs)
+        np.testing.assert_allclose(ms.numpy()[fin], rs[fin], rtol=TOL,
+                                   atol=TOL, err_msg=what)
+        np.testing.assert_allclose(mc.numpy(), rc, rtol=TOL, atol=TOL,
+                                   err_msg=what)
+    assert float(mr[2]) == float(occupied >= 2)
+    for what, ref in (("kernel", jops.qo_best_split(table, interpret=True)),
+                      ("core", jqo.best_split(table))):
+        assert bool(ref.valid) == bool(mr[2]), what
+        np.testing.assert_allclose(
+            mr[:2].numpy(), [float(ref.threshold), float(ref.merit)],
+            rtol=TOL, atol=TOL, err_msg=what)
+    torch.testing.assert_close(mr, pr, rtol=TOL, atol=TOL)
 
 
 def merge_operands(rng, N, F, C):
@@ -741,19 +829,34 @@ def card():
 class TestOnCard:
     """Each CUDA kernel against its plain version on the same card."""
 
-    def test_route_kernel(self, card):
-        rng = np.random.default_rng(1)
-        T, M, F, B = 4, 63, 5, 300
-        feature, thr, child, is_leaf, depth = random_trees(rng, T, M, F, 30)
+    @pytest.mark.parametrize("T,M,F,B,extra", [
+        (1, 63, 5, 1, 0), (16, 1023, 16, 300, 5), (16, 63, 5, 4096, 0),
+        (2, 16383, 5, 300, 3), (3, 127, 70, 257, 0),
+        (2, 16383, 70, 300, 0)])
+    def test_route_kernel(self, card, T, M, F, B, extra):
+        """The kernel on the (T, M) arrays against ``route_plain``, ids
+        exact, one launch: one tree and sixteen (one of them a bare root),
+        one row and row counts off the 256-row tile, NaN and +-inf rows, a
+        bound ``extra`` plies past the deepest leaf; M = 16,383 past the
+        block's shared memory (the records read from global memory), with
+        narrow and wide rows (F = 5, 70)."""
+        rng = np.random.default_rng(T * M + B)
+        splits = np.minimum(rng.integers(0, M // 2, T), 3000)
+        splits[0] = 0 if T > 1 else M // 2
+        feature, thr, child, is_leaf, depth = random_trees(rng, T, M, F,
+                                                           splits)
+        trees = [torch.tensor(a, device=card)
+                 for a in (feature, thr, child, is_leaf)]
         X = torch.tensor(rows_with_extremes(rng, B, F), device=card)
-        folded = qo_route.fold_route_tables(
-            *(torch.tensor(a, device=card)
-              for a in (feature, thr, child, is_leaf)))
+        plies = int(depth.max()) + extra
         before = _build.LAUNCHES["qo_route"]
-        k = qo_route.route_kernel(*folded, X, T, M, int(depth.max()))
-        p = qo_route.route_plain(*folded, X, T, M, int(depth.max()))
-        assert torch.equal(k, p)
+        k = qo_route.route_kernel(*trees, X, plies)
         assert _build.LAUNCHES["qo_route"] == before + 1
+        p = qo_route.route_plain(*trees, X, plies)
+        assert k.dtype == torch.int32 and k.shape == (T, B)
+        assert torch.equal(k, p)
+        if T > 1:
+            assert bool((k[0] == 0).all())      # the bare root
 
     @staticmethod
     def _absorb_on_card(card, fn, tab_y, sum_x, args, **kw):
@@ -923,26 +1026,16 @@ class TestOnCard:
         assert _build.LAUNCHES["qo_query_batched"] == before
 
     @staticmethod
-    def _fragile_rows(n_sorted, K, integer):
-        """Rows where the kernel's ids may differ from the plain version's:
-        with integer weights (cumw exact in any order) exactly the rows
-        where K / tot and PyTorch's reciprocal(tot) * K give other ids
-        (ROADMAP C12); otherwise also rows holding a centroid whose scaled
-        midpoint lies within a few ulps of an inner bucket edge (the
-        kernel's scan order)."""
-        cumw = torch.cumsum(n_sorted, -1)
-        tot = torch.clamp(cumw[..., -1:], min=1e-30)
-        mid = cumw - 0.5 * n_sorted
-        ids = torch.clamp(xla_int32(mid * (torch.full_like(tot, K) / tot)),
-                          0, K - 1)
-        fragile = ids != sketch_compact.bucket_ids(n_sorted, K)
-        if not integer:
-            c64 = torch.cumsum(n_sorted.double(), -1)
-            x = (c64 - 0.5 * n_sorted.double()) * (K / c64[..., -1:])
-            m = torch.round(x)
-            fragile |= ((x - m).abs() <= 1e-6 * torch.clamp(x.abs(), min=1.0)
-                        ) & (m >= 1) & (m <= K - 1)
-        return fragile.any(-1)
+    def _fragile_rows(n_sorted, K):
+        """Rows where the kernel's ids may differ from the plain version's
+        with non-integer weights: a centroid whose scaled midpoint lies
+        within a few ulps of an inner bucket edge (the kernel's scan sums
+        the cumulative weights in another order)."""
+        c64 = torch.cumsum(n_sorted.double(), -1)
+        x = (c64 - 0.5 * n_sorted.double()) * (K / c64[..., -1:])
+        m = torch.round(x)
+        return (((x - m).abs() <= 1e-6 * torch.clamp(x.abs(), min=1.0))
+                & (m >= 1) & (m <= K - 1)).any(-1)
 
     @pytest.mark.parametrize("J,K,integer", [
         (2, 2, True), (32, 16, True), (33, 16, True), (64, 32, True),
@@ -951,9 +1044,9 @@ class TestOnCard:
         """The fused kernel vs ``compact_plain`` on unsorted centroids with
         tied, +-0.0, NaN and empty prototypes and all-empty rows: n exact
         (integer weights), the rest within 1e-4, one launch a call, a
-        bitwise rerun; as one plane set and as two (the merge).  Only rows
-        whose ids sit on an integer edge are left out where the kernel's
-        ids may differ (non-integer weights, or K not a power of two)."""
+        bitwise rerun; as one plane set and as two (the merge).  With
+        non-integer weights the rows whose ids sit on an integer edge are
+        left out (the kernel's cumulative weights sum in another order)."""
         rng = np.random.default_rng(J * K)
         R = 300
         n = (rng.integers(0, 6, (R, J)) * (rng.random((R, J)) < 0.8)
@@ -974,9 +1067,9 @@ class TestOnCard:
         assert _build.LAUNCHES["sketch_compact"] == before + 1
         p = sketch_compact.compact_plain(planes, K)
         keep = torch.ones(R, dtype=torch.bool, device=card)
-        if not integer or K & (K - 1):
+        if not integer:
             srt = sketch_compact.sort_planes(*planes)[0]
-            keep = ~self._fragile_rows(srt, K, integer)
+            keep = ~self._fragile_rows(srt, K)
             print(f"J={J} K={K}: {int((~keep).sum())} of {R} rows on an "
                   f"integer edge left out")
             assert int(keep.sum()) >= R // 2
@@ -1071,22 +1164,69 @@ class TestOnCard:
             k = qo_merge.merge_kernel(*shifted)
             assert all(torch.equal(u, v) for u, v in zip(k, p))
 
+    @staticmethod
+    def _qo_query_holds(card, n, mean, m2, sum_x):
+        """The kernel on one table: bitwise equal to :func:`model_best`,
+        against ``best_plain`` the same -inf and NaN entries and validity,
+        scores, thresholds and merit within 1e-4; one launch a call, a
+        bitwise rerun.  Returns the kernel's (score, cand, result)."""
+        planes = [torch.tensor(a, device=card) for a in (n, mean, m2, sum_x)]
+        before = _build.LAUNCHES["qo_query"]
+        k = qo_query.best_kernel(*planes)
+        assert _build.LAUNCHES["qo_query"] == before + 1
+        for a, b in zip(k, model_best(*(a.cpu() for a in planes))):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0,
+                                       equal_nan=True)
+        (ks, kc, kr), (ps, pc, pr) = k, qo_query.best_plain(*planes)
+        assert torch.equal(torch.isneginf(ks), torch.isneginf(ps))
+        assert torch.equal(torch.isnan(ks), torch.isnan(ps))
+        fin = torch.isfinite(ps)
+        torch.testing.assert_close(ks[fin], ps[fin], rtol=TOL, atol=TOL)
+        torch.testing.assert_close(kc, pc, rtol=TOL, atol=TOL,
+                                   equal_nan=True)
+        torch.testing.assert_close(kr, pr, rtol=TOL, atol=TOL,
+                                   equal_nan=True)
+        again = qo_query.best_kernel(*planes)
+        assert all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                   for a, b in zip(k, again))
+        return k
+
     def test_qo_query_kernel(self, card):
         rng = np.random.default_rng(6)
         for C, occupied in ((1024, 300), (96, 1), (3000, 2000), (64, 0)):
             n = np.zeros(C, np.float32)
             n[rng.choice(C, occupied, replace=False)] = rng.integers(
                 1, 9, occupied)
-            planes = [torch.tensor(a, device=card) for a in (
+            planes = (
                 n, np.where(n > 0, rng.normal(0, 3, C), 0).astype(np.float32),
                 np.where(n > 1, rng.uniform(0, 2, C), 0).astype(np.float32),
                 (n * (np.arange(C) + rng.uniform(0, 1, C))).astype(
-                    np.float32))]
-            ks, kc, kr = qo_query.best_kernel(*planes)
-            ps, pc, pr = qo_query.best_plain(*planes)
-            assert torch.equal(torch.isneginf(ks), torch.isneginf(ps))
-            fin = torch.isfinite(ps)
-            torch.testing.assert_close(ks[fin], ps[fin], rtol=TOL, atol=TOL)
-            torch.testing.assert_close(kc, pc, rtol=TOL, atol=TOL)
-            torch.testing.assert_close(kr, pr, rtol=TOL, atol=TOL)
+                    np.float32))
+            _, _, kr = self._qo_query_holds(card, *planes)
             assert float(kr[2]) == float(occupied >= 2)
+
+    @pytest.mark.parametrize("C", [1, 16, 31, 32, 33, 1024, 3000,
+                                   qo_query.MAX_BINS])
+    def test_qo_query_kernel_shapes(self, card, C):
+        """One and several warps, chunks off the 32-bin width, past 1,024
+        bins (warps loop over their chunks) up to MAX_BINS: a table with
+        half its bins occupied, an empty one, one with a single occupied
+        bin (the last), and one with a NaN mean (every score after it
+        NaN, the argmax the first NaN)."""
+        rng = np.random.default_rng(C)
+        n, mean, m2, sum_x = single_table(rng, C, (C + 1) // 2)
+        _, _, kr = self._qo_query_holds(card, n, mean, m2, sum_x)
+        assert float(kr[2]) == float((C + 1) // 2 >= 2)
+        zero = np.zeros(C, np.float32)
+        _, _, kr = self._qo_query_holds(card, zero, zero, zero, zero)
+        assert float(kr[2]) == 0.0 and float(kr[1]) == 0.0
+        one = zero.copy()
+        one[-1] = 3.0
+        _, _, kr = self._qo_query_holds(card, one, one, zero, one * 0.5)
+        assert float(kr[2]) == 0.0
+        if C >= 3:
+            occ = np.flatnonzero(n)
+            mean = mean.copy()
+            mean[occ[len(occ) // 2]] = np.nan
+            ks, _, kr = self._qo_query_holds(card, n, mean, m2, sum_x)
+            assert bool(torch.isnan(ks).any()) and float(kr[2]) == 0.0

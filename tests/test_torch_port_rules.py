@@ -114,7 +114,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int32)
     X = torch.zeros((2, 3))
     with pytest.raises(ValueError, match="qo_route"):
-        qo_route.route_kernel(z, torch.zeros(4), z, z, X, 1, 4, 1)
+        qo_route.route_kernel(z[None], torch.zeros((1, 4)),
+                              torch.full((1, 4, 2), -1, dtype=torch.int32),
+                              torch.ones((1, 4), dtype=torch.bool), X, 1)
     tab = {k: torch.zeros((4, 3, 8)) for k in ("n", "mean", "m2")}
     with pytest.raises(ValueError, match="qo_update_leaves"):
         qo_update_leaves.absorb_kernel(tab, torch.zeros((4, 3, 8)),

@@ -192,7 +192,8 @@ def test_bitonic_network_is_the_stable_sort(seed, J, all_empty):
                        torch.sort(key, dim=-1, stable=True).indices)
 
 
-@pytest.mark.parametrize("J,k", [(2, 4), (32, 16), (48, 16), (64, 32)])
+@pytest.mark.parametrize("J,k", [(2, 4), (32, 16), (48, 16), (64, 32),
+                                 (48, 12), (64, 24)])
 def test_compact_plain_matches_reference(J, k):
     """``compact_plain`` (the CPU path of ``compact``) against the
     reference's ``compact_planes`` (jnp) and, for the reduction stage,
@@ -252,7 +253,8 @@ def batch_with_edges(rng, B, F, n_tables):
     return leaf, X, y, w
 
 
-@pytest.mark.parametrize("B,k", [(1, 4), (97, 8), (1500, 32)])
+@pytest.mark.parametrize("B,k", [(1, 4), (97, 8), (1500, 32), (997, 12),
+                                 (500, 24)])
 def test_from_batch_planes_matches_reference(B, k):
     rng = np.random.default_rng(B)
     n_tables, F = 6, 3

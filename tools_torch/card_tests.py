@@ -1,0 +1,41 @@
+#!/usr/bin/env python3
+"""Run ``tests/test_torch_kernels.py::TestOnCard`` on a GPU machine without
+JAX: the module's JAX and reference imports (which only its CPU tests use)
+are stubbed with empty modules.
+
+    python3 tools_torch/card_tests.py [pytest arguments]
+
+Prints the card's name and power limit and each kernel's ptxas register
+and spill lines, then runs the card tests (``--noconftest``: the
+repository's conftest imports the JAX package).
+"""
+import os
+import subprocess
+import sys
+import types
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+for name in ("jax", "jax.numpy", "repro", "repro.kernels",
+             "repro.kernels.ops"):
+    sys.modules[name] = types.ModuleType(name)
+sys.modules["jax"].numpy = sys.modules["jax.numpy"]
+sys.modules["repro"].kernels = sys.modules["repro.kernels"]
+sys.modules["repro.kernels"].ops = sys.modules["repro.kernels.ops"]
+sys.path.insert(0, os.path.join(ROOT, "src"))
+print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True).stdout, flush=True)
+from repro_torch.kernels import _build  # noqa: E402
+
+for name, path in _build.build().items():
+    log = path.with_suffix(".log")
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"    {name}: {line.strip()}")
+import pytest  # noqa: E402
+
+sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
+                      "-p", "no:randomly", *sys.argv[1:],
+                      os.path.join(ROOT, "tests", "test_torch_kernels.py")
+                      + "::TestOnCard"]))
