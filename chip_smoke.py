@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Four paths at full width, each fatal on failure:
+Five paths at full width, each fatal on failure:
 
 * ``forest_t16_m1023_f16_c64``: an online-bagged forest of T=16 QO
   Hoeffding trees, M=1023 nodes, max depth 12, F=16 features, C=64 bins,
@@ -18,7 +18,9 @@ Four paths at full width, each fatal on failure:
   forest (DESIGN.md §4.1) with D=4 shards on the one card
   (``build_data_parallel_reference``: what each rank of a 4-GPU run
   computes), global batches of B=4096 rows (1024 a shard), a sync every
-  2 batches.
+  2 batches;
+* ``engine_t16_m1023_f16_c64``: the first forest trained and served at
+  once by the serving engine, under injected faults and on threads.
 
 Phases:
 
@@ -81,7 +83,30 @@ Phases:
 11. where the DP time goes: 8 global batches (4 syncs) after 8 warm-up
     batches, timed per call and under torch.profiler: ms per global batch
     and per sync, the device-busy share, the top device kernels and host
-    operations.
+    operations;
+12. the serving engine (``engine_t16_m1023_f16_c64``: the first forest
+    behind ``core/engine.py``, ``EngineConfig(sync_every=4, ckpt_every=1,
+    max_queue_rows=8192, max_batch_rows=2048)``, a ``Checkpointer`` with
+    keep=3 under a temporary directory, the stream indexed by step, the
+    requests ``bursty_arrivals(96, base_rows=256, burst_factor=8,
+    burst_every=10, burst_len=2, base_gap_s=0.02, seed=3)``), with the
+    counts reset: stepped under faults (a ``Kill`` one step past a
+    publish, a ``Corrupt`` publish with a NaN threshold, ``Drop`` faults until
+    the staleness flag trips, a request larger than the queue), every
+    admitted ticket equal to ``predict_snapshot`` of its version bitwise,
+    the recovered trainer rewound to the checkpoint step and, replayed,
+    bitwise equal to an uninterrupted engine (generator state and every
+    QO table), the counters equal to the scenario's; then the open loop on
+    threads (sustained rows/s, p50/p99 latency, sheds, publishes, snapshot
+    age); then its costs: ``serve_once`` against a bare
+    ``predict_snapshot`` of 2048 rows taken in turns, freeze + validate +
+    publish, the pre-step copy of the state, and a blocking ``save`` and
+    ``restore_latest`` of the whole state (ms, GB/s);
+13. sharded, in a one-rank NCCL group: ``build_sharded_forest`` over 8
+    batches equal to ``forest.update`` bitwise (state and ``forest_mse``),
+    ``build_sharded_serving`` of 8192 rows equal to ``predict_snapshot``,
+    ``sketch.all_merge`` of a C = 1024 table absorbed from 10^6 rows equal
+    to the table.
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -156,7 +181,10 @@ def _device_ms(fn, reps=10):
     """Device time of one call of ``fn``, in ms: the profiler's CUDA
     kernel time over ``reps`` calls (after a warm-up call).  A window in
     which the profiler recorded fewer device events than calls (it can
-    drop a window's activity) is profiled again, up to three times."""
+    drop a window's activity) is profiled again, up to three times; if
+    all three drop, CUDA events around ``reps`` back-to-back calls give the
+    stream's time a call instead (an upper bound: host gaps between the
+    launches count), and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -170,8 +198,16 @@ def _device_ms(fn, reps=10):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if sum(e.count for e in events) >= reps:
             return sum(e.self_device_time_total for e in events) / 1e3 / reps
-    raise AssertionError("the profiler recorded no device time for a "
-                         f"window of {reps} calls, three times")
+    print(f"    the profiler dropped three windows: the next device time is "
+          f"the CUDA-event time of {reps} back-to-back calls", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def forest_config(**tree):
@@ -1127,6 +1163,346 @@ def _dp_profile(cfg, batches, seed, dev):
             f"DP global batches (D = {DP_SHARDS})", "[11]")
 
 
+ENGINE = dict(sync_every=4, ckpt_every=1, max_queue_rows=8192,
+              max_batch_rows=2048)
+ARRIVALS = dict(base_rows=256, burst_factor=8, burst_every=10, burst_len=2,
+                base_gap_s=0.02, seed=3)
+N_REQUESTS, ENGINE_KEEP, SHARDED_BATCHES = 96, 3, 8
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _check_path_launches(tag):
+    from repro_torch.kernels import _build
+    launches = dict(_build.LAUNCHES)
+    print(f"{tag} kernels {json.dumps(launches)}", flush=True)
+    for name in ("qo_route", "qo_update_leaves", "qo_query_batched"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the {tag} path")
+
+
+def _engine_faults(cfg, batches, pool, seed, dev, tmp):
+    """Phase 12, stepped: the engine under a Kill, a Corrupt publish,
+    Drops and an oversize request; every admitted ticket against
+    ``predict_snapshot`` of its version, the recovered trainer against an
+    uninterrupted engine.  Returns the faulted engine."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.core import engine as eng
+    from repro_torch.core import faults as fl
+    from repro_torch.core import forest as fr
+    from repro_torch.core import serve as sv
+    from repro_torch.kernels import _build
+
+    stream = lambda step: batches[step] if step < len(batches) else None
+    ecfg = eng.EngineConfig(**ENGINE)
+    sched = fl.bursty_arrivals(N_REQUESTS, **ARRIVALS)
+    inj = fl.FaultInjector()
+
+    def nan_threshold(s):
+        t, m = [int(i[0]) for i in torch.nonzero(~s.is_leaf, as_tuple=True)]
+        thr = s.threshold.clone()
+        thr[t, m] = float("nan")
+        return dataclasses.replace(s, threshold=thr)
+
+    _sync()
+    _build.reset_launches()
+    e = eng.ServingEngine(cfg, fr.init_forest(cfg, seed, device=dev), stream,
+                          cfg=ecfg, checkpointer=Checkpointer(
+                              tmp, keep=ENGINE_KEEP),
+                          injector=inj, device=dev)
+    clean = eng.ServingEngine(cfg, fr.init_forest(cfg, seed, device=dev),
+                              stream, cfg=ecfg, device=dev)
+    checked, compared, k = 0, [], 0
+
+    def serve_and_check():
+        nonlocal checked
+        while e.serve_once():
+            pass
+        for t in tickets[checked:]:
+            if t.status == "done":
+                want = sv.predict_snapshot(e.snapshot_for_version(t.version),
+                                           t.X, device=dev).cpu().numpy()
+                if not (want == t.result).all():
+                    raise AssertionError(f"ticket of {t.rows} rows differs "
+                                         f"from predict_snapshot of v"
+                                         f"{t.version}")
+            elif t.status != "shed":
+                raise AssertionError(f"ticket left {t.status}")
+        checked = len(tickets)
+
+    # the trainer calls k: 0-3 learn steps 0-3 (publish v2 and a checkpoint
+    # at step 4); 4 learns step 4; 5 is killed and rewinds to step 4
+    # (publish v3); 6-9 replay to step 8 (v4); the publish at step 12 (call
+    # 13) is corrupt, those at 16, 20 and 24 dropped, so the snapshot ages
+    # past 3 windows at steps 21-23 and 25-27; 28 and 32 publish (v5, v6)
+    tickets = []
+    t0 = time.perf_counter()
+    while True:
+        if k == 4:
+            inj.arm("trainer.step", fl.Kill(), after=1)
+        if k == 10:
+            inj.arm("publish", fl.Corrupt(nan_threshold))
+            tickets.append(e.submit(pool[:ENGINE["max_queue_rows"] + 1]))
+        if k == 14:
+            inj.arm("publish", fl.Drop(), times=3)
+        rows = sched[k % len(sched)][1]
+        tickets.append(e.submit(pool[:rows]))
+        if not e.train_once():
+            break
+        k += 1
+        if k == 6 and (e._trainer_step, e._published.step) != (4, 4):
+            raise AssertionError(f"the kill did not rewind to the "
+                                 f"checkpoint at step 4: trainer step "
+                                 f"{e._trainer_step}, published step "
+                                 f"{e._published.step}")
+        serve_and_check()
+        while clean._trainer_step < e._trainer_step:
+            clean.train_once()
+        if clean._trainer_step == e._trainer_step in (8, len(batches)):
+            _same(clean._state, e._state,
+                  f"faulted engine at step {e._trainer_step}")
+            compared.append(e._trainer_step)
+    _sync()
+    secs = time.perf_counter() - t0
+    _check_path_launches("[12]")
+    m = e.metrics()
+    want = {"trainer_crashes": 1, "recoveries": 1, "rollbacks": 1,
+            "publish_failures": 1, "publishes_dropped": 3, "publishes": 6,
+            "shed_requests": 1, "shed_rows": ENGINE["max_queue_rows"] + 1,
+            "stale_events": 6, "ckpt_failures": 0}
+    got = {key: m[key] for key in want}
+    if got != want or inj.fired("trainer.step") != 1 \
+            or inj.fired("publish") != 4:
+        raise AssertionError(f"counters {got}, expected {want}; fired "
+                             f"{inj.log}")
+    if compared != [8, len(batches)]:
+        raise AssertionError(f"compared with the clean engine at {compared}")
+    done = sum(t.status == "done" for t in tickets)
+    print(f"[12] stepped under faults: {k} trainer calls in {secs:.3f} s; "
+          f"the kill rewound to step 4, the replay equals an uninterrupted "
+          f"engine bitwise at steps {compared} (rng and every QO table); "
+          f"{done} admitted tickets equal predict_snapshot of their "
+          f"version bitwise; counters {json.dumps(got)}; stale flag seen "
+          f"{m['stale_events']} steps", flush=True)
+    del clean
+    return e
+
+
+def _engine_open_loop(cfg, batches, pool, seed, dev, tmp, smi):
+    """Phase 12, threaded: the open-loop arrivals racing the trainer."""
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.core import engine as eng
+    from repro_torch.core import faults as fl
+    from repro_torch.core import forest as fr
+
+    stream = lambda step: batches[step] if step < len(batches) else None
+    e = eng.ServingEngine(cfg, fr.init_forest(cfg, seed, device=dev), stream,
+                          cfg=eng.EngineConfig(**ENGINE),
+                          checkpointer=Checkpointer(tmp, keep=ENGINE_KEEP),
+                          device=dev)
+    e.submit(pool[:ENGINE["max_batch_rows"]])       # warm, off the books
+    e.serve_once()
+    m0 = e.metrics()
+    sched = fl.bursty_arrivals(N_REQUESTS, **ARRIVALS)
+    e.start()
+    try:
+        t0 = time.perf_counter()
+        tickets = []
+        for gap, rows in sched:
+            if gap:
+                time.sleep(gap)
+            tickets.append(e.submit(pool[:rows]))
+        for t in tickets:
+            if not t.wait(timeout=120):
+                raise AssertionError("an admitted ticket was never served")
+        wall = time.perf_counter() - t0
+        learned = e._trainer_step
+    finally:
+        e.stop(drain=True, timeout=120)
+    m = e.metrics()
+    served = m["served_rows"] - m0["served_rows"]
+    lat = np.array([t.latency_s for t in tickets if t.status == "done"])
+    if any(t.status not in ("done", "shed") for t in tickets) or \
+            served + m["shed_rows"] != sum(t.rows for t in tickets):
+        raise AssertionError("the open loop left admitted tickets unserved")
+    print(f"[12] open loop ({smi}): {len(tickets)} requests in {wall:.3f} s: "
+          f"{served / wall:.0f} rows/s sustained, latency p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms; shed {m['shed_requests']} "
+          f"requests, {m['shed_rows']} rows; "
+          f"{m['serve_batches'] - m0['serve_batches']} serve "
+          f"batches; the trainer learned {learned} batches in the window "
+          f"({learned * B / wall:.0f} rows/s), {m['publishes']} "
+          f"publishes by the stop; snapshot age at stop {m['age_steps']} "
+          f"steps, "
+          f"{m['age_s'] * 1e3:.1f} ms", flush=True)
+
+
+def _engine_costs(cfg, e, pool, dev, tmp, smi):
+    """Phase 12, costs: serve_once vs a bare predict_snapshot in turns,
+    freeze + validate + publish, the pre-step copy, save and restore."""
+    import torch
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.core import engine as eng
+    from repro_torch.core import serve as sv
+
+    state = e._state
+    rows = ENGINE["max_batch_rows"]
+    Xq = pool[:rows]
+    ec = eng.ServingEngine(cfg, state, lambda step: None,
+                           cfg=eng.EngineConfig(**ENGINE), device=dev)
+    snap = ec.snapshot_for_version(1)
+
+    def eng_once():
+        t = ec.submit(Xq)
+        ec.serve_once()
+        return t.result
+
+    def bare_once():
+        return sv.predict_snapshot(snap, Xq, device=dev).cpu().numpy()
+
+    if not (eng_once() == bare_once()).all():
+        raise AssertionError("serve_once differs from predict_snapshot")
+    t_eng, t_bare = [], []
+    for _ in range(150):
+        for fn, times in ((eng_once, t_eng), (bare_once, t_bare)):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    print(f"[12] serve_once of {rows} rows ({smi}): min "
+          f"{min(t_eng) * 1e3:.4f} ms, median "
+          f"{statistics.median(t_eng) * 1e3:.4f} ms; bare predict_snapshot "
+          f"min {min(t_bare) * 1e3:.4f} ms, median "
+          f"{statistics.median(t_bare) * 1e3:.4f} ms; frac_of_bare "
+          f"{min(t_bare) / min(t_eng):.3f} (min), "
+          f"{statistics.median(t_bare) / statistics.median(t_eng):.3f} "
+          f"(median)", flush=True)
+
+    def timed(fn, reps):
+        out = []
+        for _ in range(reps):
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    t_freeze = timed(lambda: sv.freeze(state, device=dev), 5)
+    t_valid = timed(lambda: sv.validate_snapshot(snap), 5)
+    t_pub = timed(ec.publish_from_state, 5)
+    t_copy = timed(lambda: eng._clone(state), 10)
+    print(f"[12] publish ({smi}): freeze {t_freeze:.3f} ms, validate "
+          f"{t_valid:.3f} ms, freeze + validate + publish {t_pub:.3f} ms; "
+          f"the pre-step copy of the state {t_copy:.3f} ms", flush=True)
+
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(state))
+    ck = Checkpointer(tmp, keep=ENGINE_KEEP)
+    t_save = timed(lambda: ck.save(1000, state, blocking=True), 3)
+    t_rest = timed(lambda: ck.restore_latest(state), 3)
+    _same(state, ck.restore_latest(state), "restored engine state")
+    print(f"[12] checkpoint of {nbytes / 1e6:.1f} MB ({smi}): blocking save "
+          f"{t_save:.1f} ms ({nbytes / t_save / 1e6:.3f} GB/s), "
+          f"restore_latest {t_rest:.1f} ms ({nbytes / t_rest / 1e6:.3f} "
+          f"GB/s), restored bitwise", flush=True)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def _engine_phase(cfg, batches, seed, dev, smi):
+    """Phase 12: the serving engine at full width."""
+    import shutil
+    import tempfile
+    from repro_torch.data import synth
+    pool, _ = synth.piecewise_regression(ENGINE["max_queue_rows"] + 1, F,
+                                         seed=seed + 12)
+    tmp = tempfile.mkdtemp(prefix="engine_ckpt_")
+    try:
+        e = _engine_faults(cfg, batches, pool, seed, dev,
+                           os.path.join(tmp, "faults"))
+        _engine_open_loop(cfg, batches, pool, seed, dev,
+                          os.path.join(tmp, "open"), smi)
+        _engine_costs(cfg, e, pool, dev, os.path.join(tmp, "costs"), smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sharded_phase(cfg, batches, seed, dev):
+    """Phase 13: the tree-axis sharded forest, request-sharded serving and
+    all_merge in a one-rank NCCL group, each against its unsharded call."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import forest as fr
+    from repro_torch.core import qo
+    from repro_torch.core import serve as sv
+    from repro_torch.core import sketch
+    from repro_torch.data import synth
+    from repro_torch.kernels import _build
+    from repro_torch.train import sharding as sh
+
+    tmp = tempfile.mkdtemp(prefix="sharded_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        _sync()
+        _build.reset_launches()
+        sharded = sh.build_sharded_forest(cfg, device=dev)
+        ref = fr.init_forest(cfg, seed, device=dev)
+        shd = sharded.shard(ref)
+        for i, (Xb, yb) in enumerate(batches[:SHARDED_BATCHES]):
+            ref, aux_r = fr.update(cfg, ref, Xb, yb, device=dev)
+            shd, aux_s = sharded.update(shd, Xb, yb)
+            _same(ref, shd, f"sharded forest at batch {i}")
+            _same(aux_r, aux_s, f"sharded aux at batch {i}")
+        _sync()
+        _check_path_launches("[13]")
+        print(f"[13] build_sharded_forest (one-rank NCCL group) equals "
+              f"forest.update bitwise over {SHARDED_BATCHES} batches, "
+              f"forest_mse {float(aux_s['forest_mse']):.4f}", flush=True)
+        snap = sv.freeze(ref, device=dev)
+        Xs, _ = synth.piecewise_regression(SERVE_ROWS, F, seed=seed + 7)
+        Xs = torch.as_tensor(Xs, device=dev)
+        served = sh.build_sharded_serving(snap, device=dev)(snap, Xs)
+        if not torch.equal(served, sv.predict_snapshot(snap, Xs,
+                                                       device=dev)):
+            raise AssertionError("sharded serving differs from "
+                                 "predict_snapshot")
+        print(f"[13] build_sharded_serving of {SERVE_ROWS} rows equals "
+              f"predict_snapshot bitwise", flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 13)
+        x = torch.randn(QO_ROWS, generator=gen, device=dev)
+        y = 2.0 * (x > 0.3) + 0.1 * torch.randn(QO_ROWS, generator=gen,
+                                                device=dev)
+        radius, origin = qo.auto_radius(x[:10_000])
+        table = qo.update(qo.init(QO_BINS, radius, origin, device=dev), x, y,
+                          device=dev)
+        merged = sketch.all_merge(table)
+        _same(table, merged, "all_merge of one rank")
+        print(f"[13] all_merge of a C={QO_BINS} table absorbed from "
+              f"{QO_ROWS} rows equals the table bitwise", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1151,7 +1527,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
-    print(f"[1] card: {smi}", flush=True)
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1324,6 +1701,12 @@ def main(argv=None) -> int:
 
     # ---- 11. where the DP time goes ---------------------------------------
     _dp_profile(cfg, batches, args.seed, dev)
+
+    # ---- 12. the serving engine -------------------------------------------
+    _engine_phase(cfg, batches, args.seed, dev, smi)
+
+    # ---- 13. sharded training, serving and all_merge ----------------------
+    _sharded_phase(cfg, batches, args.seed, dev)
 
     # launches from the phase whose path runs each kernel
     for row in rows:

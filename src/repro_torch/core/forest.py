@@ -32,7 +32,8 @@ from repro_torch.kernels import ops as kops
 ForestState = dict
 
 __all__ = ["ForestConfig", "init_forest", "update", "update_stream",
-           "predict", "member_predictions", "vote_weights", "vote_combine"]
+           "predict", "member_predictions", "vote_weights", "vote_combine",
+           "n_leaves_per_tree"]
 
 
 @dataclass(frozen=True)
@@ -173,19 +174,30 @@ def vote_weights(cfg: ForestConfig, state: ForestState):
         seen, (1.0 / (state["err_ewma"] + 1e-6)) ** cfg.vote_power, 0.0)
 
 
-def vote_combine(yhat, wts):
+def vote_combine(yhat, wts, group=None):
     """(T, B) member predictions + (T,) weights -> (B,) vote.  The one
     definition of the prediction reduce, shared by :func:`predict`, the
-    prequential error in :func:`update` and snapshot serving."""
+    prequential error in :func:`update` and snapshot serving.  With a
+    ``torch.distributed`` ``group`` (the tree axis split over its ranks)
+    the (num, den) pair is all-reduced over it: the forest's only
+    collective."""
     num = (wts[:, None] * yhat).sum(0)
     den = wts.sum()
+    if group is not None:
+        import torch.distributed as dist
+        pair = torch.cat([num, den[None]])
+        dist.all_reduce(pair, group=group)
+        num, den = pair[:-1], pair[-1]
     return num / torch.clamp(den, min=1e-12)
 
 
-def predict(cfg: ForestConfig, state: ForestState, X, *, device=None):
-    """(B,) f32 forest prediction: the vote-weighted mean of members."""
+def predict(cfg: ForestConfig, state: ForestState, X, *, device=None,
+            group=None):
+    """(B,) f32 forest prediction: the vote-weighted mean of members.
+    ``group``: the ranks the tree axis is split over (see
+    :func:`vote_combine`)."""
     return vote_combine(member_predictions(cfg, state, X, device=device),
-                        state["vote_w"])
+                        state["vote_w"], group)
 
 
 def _fold(a, T, M):
@@ -257,7 +269,7 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
 
 
 def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
-           bag_w=None, new_masks=None, device=None):
+           bag_w=None, new_masks=None, device=None, group=None):
     """Learn one batch, test-then-train.
 
     X: (B, F); y: (B,); w: optional (B,) row weights (multiply every
@@ -270,18 +282,23 @@ def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
     "forest_mse": (), "drift": (T,) bool}``, the prequential (pre-update)
     errors of this batch.  The QO tables of ``state`` are updated in
     place: the old state is consumed.
+
+    ``group``: the ``torch.distributed`` ranks the tree axis is split over
+    (each rank's ``state`` holds its own members, T taken from the state):
+    only the forest vote is all-reduced, and the drift swap is resolved
+    among the rank's members.
     """
     dev = dv.resolve(device)
     dv.check_on(state["vote_w"], dev, "state")
     X, y, row_w = ht.as_batch(X, y, w, dev)
     B = y.shape[0]
-    T, F = cfg.n_trees, cfg.tree.n_features
+    T, F = state["vote_w"].shape[0], cfg.tree.n_features
     wsum = torch.clamp(row_w.sum(), min=1e-12)
 
     # --- test: prequential member + forest errors on the raw stream ------
     yhat = _member_predictions(cfg, state["trees"], X)           # (T, B)
     member_mse = (row_w[None, :] * (yhat - y[None, :]) ** 2).sum(1) / wsum
-    fpred = vote_combine(yhat, state["vote_w"])
+    fpred = vote_combine(yhat, state["vote_w"], group)
     forest_mse = (row_w * (fpred - y) ** 2).sum() / wsum
 
     # --- train: Poisson(lambda) bagging weights, one fused member update --
@@ -363,3 +380,8 @@ def update_stream(cfg: ForestConfig, state: ForestState, X, y,
         mm.append(aux["member_mse"])
     return state, {"forest_mse": torch.stack(fm),
                    "member_mse": torch.stack(mm)}
+
+
+def n_leaves_per_tree(state: ForestState) -> torch.Tensor:
+    """(T,) i32 live-leaf count of every member (diagnostics)."""
+    return ht._live_leaves(state["trees"]).sum(-1, dtype=torch.int32)

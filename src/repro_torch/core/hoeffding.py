@@ -44,8 +44,9 @@ from repro_torch.kernels import ops as kops
 TreeState = Dict[str, object]
 
 __all__ = ["HTRConfig", "init_state", "update", "update_local",
-           "attempt_splits", "pad_stream", "predict", "attempt_mask",
-           "attempt_trees", "segment_stats"]
+           "attempt_splits", "pad_stream", "update_stream", "predict",
+           "attempt_mask", "attempt_trees", "segment_stats", "n_leaves",
+           "depth_histogram"]
 
 
 @dataclass(frozen=True)
@@ -384,3 +385,35 @@ def pad_stream(X, y, w=None, batch_size: int = 256):
     return (X.reshape(-1, batch_size, X.shape[1]),
             y.reshape(-1, batch_size), w.reshape(-1, batch_size))
 
+
+def update_stream(cfg: HTRConfig, state: TreeState, X, y, w=None,
+                  batch_size: int = 256, *, device=None) -> TreeState:
+    """Learn a stream batch by batch (a Python loop in place of the
+    reference's ``lax.scan``); the ragged tail rides at weight 0, so all
+    N rows count."""
+    for Xb, yb, wb in zip(*pad_stream(X, y, w, batch_size)):
+        state = update(cfg, state, Xb, yb, wb, device=device)
+    return state
+
+
+def _live_leaves(state: TreeState):
+    """(..., M) bool: allocated nodes that are leaves."""
+    M = state["is_leaf"].shape[-1]
+    active = torch.arange(M, device=state["is_leaf"].device) \
+        < state["n_nodes"][..., None]
+    return state["is_leaf"] & active
+
+
+def n_leaves(state: TreeState) -> torch.Tensor:
+    """Number of live leaves (allocated nodes with ``is_leaf`` set), () i32."""
+    return _live_leaves(state).sum(dtype=torch.int32)
+
+
+def depth_histogram(state: TreeState) -> torch.Tensor:
+    """(32,) i32 count of live leaves per depth (diagnostics); depths past
+    31 are dropped, as the reference's ``segment_sum`` drops them."""
+    live = _live_leaves(state)
+    keep = state["depth"] < 32
+    out = torch.zeros((32,), dtype=torch.int32, device=live.device)
+    return out.index_add_(0, state["depth"][keep].long(),
+                          live[keep].to(torch.int32))

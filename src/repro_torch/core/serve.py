@@ -46,6 +46,22 @@ class Snapshot:
     version: int = 0
     step: int = 0
 
+    def leaves(self) -> list:
+        """The reference's pytree leaves in its order: the six arrays, then
+        ``version`` and ``step`` as 0-d int32 arrays (``depth`` and
+        ``single`` are its aux data).  A checkpoint names them ``0`` to
+        ``7``."""
+        return [self.feature, self.threshold, self.child, self.is_leaf,
+                self.leaf_mean, self.vote_w,
+                np.asarray(self.version, np.int32),
+                np.asarray(self.step, np.int32)]
+
+    def with_leaves(self, leaves) -> "Snapshot":
+        """This snapshot's ``depth`` and ``single`` around ``leaves`` (the
+        order of :meth:`leaves`); the stamps are taken by value."""
+        return Snapshot(*leaves[:6], depth=self.depth, single=self.single,
+                        version=int(leaves[6]), step=int(leaves[7]))
+
 
 class SnapshotValidationError(ValueError):
     """A Snapshot violates the serving invariants (torn/corrupt model)."""

@@ -5,9 +5,9 @@ Two roles, both built on the Chan merge (Eqs. 4-5) being associative and
 commutative:
 
 * **QO-table telemetry:** :func:`quantile` and :func:`summary` read
-  approximate x-quantiles off a QO table's dense bin occupancy.  The
-  reference's ``all_merge`` (a ``lax`` collective across mesh axes) goes
-  with the data-parallel port (ROADMAP A10) and is not here.
+  approximate x-quantiles off a QO table's dense bin occupancy;
+  :func:`all_merge` merges one table a rank across a ``torch.distributed``
+  group.
 * **The sketch attribute observer** (``HTRConfig(observer_backend=
   "sketch")``): each (leaf, feature) slot holds K weighted centroids --
   the same four planes as a QO bin (target n, mean, M2 and ``sum_x``) --
@@ -50,7 +50,7 @@ from repro_torch.kernels import qo_query, sketch_compact
 from repro_torch.kernels.qo_update_leaves import xla_int32
 
 __all__ = [
-    "quantile", "summary",
+    "all_merge", "quantile", "summary",
     "SKTable", "init", "update", "merge", "best_split", "from_batch",
     "quantile_sk", "total_stats", "n_slots",
     "prototypes", "sort_planes", "compact_planes", "from_batch_planes",
@@ -63,6 +63,33 @@ SKTable = Dict[str, object]
 # --------------------------------------------------------------------------
 # QO-table telemetry
 # --------------------------------------------------------------------------
+
+def all_merge(table, group=None):
+    """Merge the QO tables of the ranks of a ``torch.distributed`` group
+    (default: the default group) -> the merged table on every rank.
+
+    All-gathers the ``y`` planes (n, mean, M2) and folds them with the
+    Chan merge in the reference's pairwise order
+    (:func:`repro_torch.core.stats.tree_reduce_merge`); ``sum_x`` is
+    all-reduced (a linear statistic).  ``radius`` and ``origin`` are this
+    rank's (every rank bins on the same grid).  Plain PyTorch, as the
+    reference's is jnp."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+
+    def gather(t):
+        out = torch.empty((world,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t[None].contiguous(), group=group)
+        return out
+
+    sum_x = table["sum_x"].clone()
+    dist.all_reduce(sum_x, group=group)
+    return {"radius": table["radius"], "origin": table["origin"],
+            "sum_x": sum_x,
+            "y": stats.tree_reduce_merge(
+                {k: gather(v) for k, v in table["y"].items()}, dim=0)}
+
 
 def _filled_quantiles(n, proto, q):
     """Prototype at the first cumulative-weight crossing of each q."""

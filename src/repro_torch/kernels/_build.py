@@ -14,6 +14,8 @@ decisions and NaN handling must follow IEEE f32 (IEEE division, no
 flush-to-zero, NaN compares false).  Builds happen at
 first use on a CUDA tensor, or all at once, one nvcc process per source
 started together, through :func:`build`.  Nothing here runs at import.
+Both take one module lock, so threads that reach a kernel's first use
+together (a serving engine's trainer and server) build it once.
 
 ``LAUNCHES`` holds one integer per kernel; each wrapper adds one where it
 launches its kernel and nowhere else.
@@ -21,11 +23,11 @@ launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build", "library",
@@ -39,6 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {name: 0 for name in SOURCES}
+_LOCK = threading.Lock()
+_LIBRARIES: dict = {}
 
 
 class BuildError(RuntimeError):
@@ -72,13 +76,19 @@ def build(names=SOURCES) -> dict:
     """Compile the named sources that are not built yet, one nvcc process
     each, all started together.  Returns ``{name: library path}``; raises
     :class:`BuildError` with nvcc's output if any build fails."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         out = lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         log = out.with_suffix(".log")
         with open(log, "w") as fh:
             proc = subprocess.Popen(
@@ -97,10 +107,12 @@ def build(names=SOURCES) -> dict:
     return {name: lib_path(name) for name in names}
 
 
-@functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``name``, built first if needed."""
-    return ctypes.CDLL(str(build((name,))[name]))
+    with _LOCK:
+        if name not in _LIBRARIES:
+            _LIBRARIES[name] = ctypes.CDLL(str(_build_locked((name,))[name]))
+        return _LIBRARIES[name]
 
 
 def check(rc: int, name: str) -> None:

@@ -1,5 +1,7 @@
-"""Data-parallel stream training (the batch-axis half of the reference's
-``train/sharding.py``, DESIGN.md §4.1).
+"""Multi-device training and serving over ``torch.distributed`` (the
+forest half of the reference's ``train/sharding.py``, DESIGN.md §4.1 and
+§5): data-parallel stream training, the tree-axis sharded forest and
+request-sharded serving.
 
 The training stream is sharded over D shards.  Every shard holds a
 replicated copy of the forest (topology, quantization grids, merged
@@ -31,11 +33,18 @@ whatever D is, so rank d and shard d draw alike.  ``update`` and
 ``update_window`` take injected ``bag_w`` for parity with the reference's
 threefry draws.
 
-The tree-axis ``build_sharded_forest`` and the request-sharded
-``build_sharded_serving`` of the reference are not here (ROADMAP A10).
+The tree axis: :func:`build_sharded_forest` gives each rank T/D member
+trees; batches are replicated and only the forest vote's (num, den) pair
+is all-reduced.  The reference keeps one threefry key a member, the port
+one generator a forest, so the generator state stays replicated: every
+rank draws the whole (T, B) bagging weights and (T, F) swap masks, as
+the unsharded ``forest.update`` draws them, and keeps its own rows.
+:func:`build_sharded_serving` splits a request's rows over the ranks,
+each serving its rows from a replicated snapshot with no collective.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -44,11 +53,14 @@ import torch
 from repro_torch import device as dv
 from repro_torch.core import forest as fr
 from repro_torch.core import hoeffding as ht
+from repro_torch.core import serve as sv
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
 
 __all__ = ["DataParallelForest", "init_data_parallel", "shard_rng_state",
-           "build_data_parallel_reference", "build_data_parallel_forest"]
+           "build_data_parallel_reference", "build_data_parallel_forest",
+           "forest_state_specs", "ShardedForest", "build_sharded_forest",
+           "build_sharded_serving"]
 
 
 def _tmap(fn, *trees):
@@ -431,3 +443,119 @@ def build_data_parallel_forest(cfg: fr.ForestConfig, group=None,
 
     return _build(cfg, dev, world, [rank], make_state, reduce, sync_every,
                   on_sync)
+
+
+# --------------------------------------------------------------------------
+# Tree-axis sharded forest and request-sharded serving (DESIGN.md §5)
+# --------------------------------------------------------------------------
+
+def _member_rows(T: int, rank: int, world: int) -> slice:
+    if T % world:
+        raise ValueError(f"{T} trees do not split over {world} ranks")
+    return slice(rank * T // world, (rank + 1) * T // world)
+
+
+def forest_state_specs(state, rank: int, world: int):
+    """Per leaf of a forest state, the rows of its tree axis that rank
+    ``rank`` of ``world`` holds: a ``slice`` (every leaf carries the tree
+    axis first), or None for the replicated generator state ``rng``."""
+    rows = _member_rows(state["vote_w"].shape[0], rank, world)
+    return {k: (None if k == "rng" else _tmap(lambda _: rows, v))
+            for k, v in state.items()}
+
+
+class ShardedForest(NamedTuple):
+    """The tree-axis sharded forest's entry points:
+
+    * ``update(state, X, y, w=None) -> (state, aux)``: one replicated
+      batch; ``aux["member_mse"]`` and ``aux["drift"]`` are the rank's
+      members', ``aux["forest_mse"]`` the whole forest's;
+    * ``predict(state, X) -> (B,)``: the whole forest's vote;
+    * ``shard(state) -> state``: the rank's members of a whole forest
+      state (a copy; ``rng`` replicated).
+    """
+    update: Any
+    predict: Any
+    shard: Any
+
+
+def build_sharded_forest(cfg: fr.ForestConfig, group=None, *,
+                         device=None) -> ShardedForest:
+    """The forest with its T trees split over the ranks of a
+    ``torch.distributed`` group (default: the default group), T/D each.
+
+    Every rank learns the whole (replicated) batch into its members; the
+    forest vote's (num, den) pair is all-reduced over the group, the only
+    collective.  The rank draws the whole forest's bagging weights and
+    swap masks from the replicated generator and keeps its rows, so the
+    sharded forest equals the unsharded ``forest.update`` while no drift
+    swap fires (bitwise on one rank).  The drift swap is resolved among a
+    rank's members, so under simultaneous drift D ranks may reset up to D
+    members a batch where the unsharded forest resets one.  ``device``:
+    this rank's device (default: the current ``cuda`` one)."""
+    import torch.distributed as dist
+
+    dev = dv.resolve(device)
+    group = dist.group.WORLD if group is None else group
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    T, F = cfg.n_trees, cfg.tree.n_features
+    mine = _member_rows(T, rank, world)
+
+    def shard(state):
+        specs = forest_state_specs(state, rank, world)
+        return _tmap(lambda a, rows: a.clone() if rows is None
+                     else a[rows].clone(), state, specs)
+
+    def update_fn(state, X, y, w=None):
+        B = ht.as_batch(X, y, w, dev)[1].shape[0]
+        gen = fr._generator(state["rng"], dev)
+        cdf = torch.tensor(fr._poisson_cdf(cfg.lam), dtype=torch.float32,
+                           device=dev)
+        bag_w = fr._poisson_weights(gen, cdf, (T, B), dev)
+        masks = fr._draw_masks(gen, T, F, cfg.subspace_k(), dev)
+        state, aux = fr.update(cfg, state, X, y, w, bag_w=bag_w[mine],
+                               new_masks=masks[mine], device=dev,
+                               group=group)
+        return dict(state, rng=gen.get_state()), aux
+
+    def predict_fn(state, X):
+        return fr.predict(cfg, state, X, device=dev, group=group)
+
+    return ShardedForest(update_fn, predict_fn, shard)
+
+
+def build_sharded_serving(snap, group=None, *, device=None):
+    """``predict_fn(snap, X) -> (B/D,)``: the rank's rows of a request.
+
+    The read-side complement of :func:`build_sharded_forest`: every rank
+    holds the whole (replicated) snapshot and serves rows ``r*B/D`` to
+    ``(r+1)*B/D`` of X (D must divide B), with no collective.  The ply
+    budget is set at build from ``snap``'s depth (rounded up to even, as
+    the reference buckets it), so a refreshed snapshot that grew deeper,
+    or one of another ``single``, is refused with a ``ValueError``:
+    rebuild then."""
+    import torch.distributed as dist
+
+    dev = dv.resolve(device)
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    plies = 2 * math.ceil(snap.depth / 2)
+    single = snap.single
+
+    def predict_fn(s, X):
+        if s.single != single or s.depth > plies:
+            raise ValueError(
+                f"snapshot (single={s.single}, depth={s.depth}) does not "
+                f"fit this serving build (single={single}, ply budget "
+                f"{plies}): rebuild build_sharded_serving")
+        dv.check_on(s.feature, dev, "snapshot")
+        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        B = X.shape[0]
+        if B % world:
+            raise ValueError(f"a request of {B} rows does not split over "
+                             f"{world} ranks")
+        return sv.predict_snapshot(
+            s, X[rank * B // world:(rank + 1) * B // world], device=dev)
+
+    return predict_fn

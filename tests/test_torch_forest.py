@@ -256,3 +256,38 @@ def test_port_draws_repeat_and_update_stream_is_the_loop():
     cdf = torch.tensor(tfr._poisson_cdf(6.0), dtype=torch.float32)
     draws = tfr._poisson_weights(gen, cdf, (20000,), torch.device("cpu"))
     assert abs(float(draws.mean()) - 6.0) < 0.1
+
+
+def test_tree_update_stream_and_diagnostics_match_reference():
+    """``hoeffding.update_stream`` (ragged tail at weight 0), ``n_leaves``
+    and ``depth_histogram`` against the reference's."""
+    jc = jht.HTRConfig(split_backend="jnp", **TREE_KW)
+    tc = tht.HTRConfig(**TREE_KW)
+    X, y = synth.piecewise_regression(2900, 4, seed=61)
+    js = jht.update_stream(jc, jht.init_state(jc), jnp.asarray(X),
+                           jnp.asarray(y), batch_size=250)
+    ts = tht.update_stream(tc, tht.init_state(tc, device="cpu"), X, y,
+                           batch_size=250, device="cpu")
+    assert_tree_holds(js, convert.state_to_numpy(ts))
+    assert int(ts["n_nodes"]) > 3
+    n = tht.n_leaves(ts)
+    assert n.dtype == torch.int32 and int(n) == int(jht.n_leaves(js))
+    hist = tht.depth_histogram(ts)
+    assert hist.dtype == torch.int32 and hist.shape == (32,)
+    np.testing.assert_array_equal(hist.numpy(),
+                                  np.asarray(jht.depth_histogram(js)))
+    assert int(hist.sum()) == int(n)
+
+
+def test_n_leaves_per_tree_matches_reference():
+    jc, tc, js = forest_pair()
+    jupd = jax.jit(functools.partial(jfr.update, jc))
+    X, y = synth.piecewise_regression(1500, 4, seed=62)
+    for i in range(0, 1500, 250):
+        js, _ = jupd(js, jnp.asarray(X[i:i + 250]), jnp.asarray(y[i:i + 250]))
+    ts = convert.state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
+    got = tfr.n_leaves_per_tree(ts)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jfr.n_leaves_per_tree(js)))
+    assert (got > 1).any()

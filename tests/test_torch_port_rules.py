@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import engine as teng
 from repro_torch.core import forest as tfr
 from repro_torch.core import hoeffding as tht
 from repro_torch.core import qo as tqo
@@ -60,7 +61,8 @@ def test_every_port_module_is_scanned():
     assert {"stats", "decide", "hoeffding", "forest", "serve", "ops",
             "qo_route", "qo_update_leaves", "qo_query_batched", "_build",
             "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
-            "sketch_compact", "qo_merge", "sharding", "compress"} <= names
+            "sketch_compact", "qo_merge", "sharding", "compress", "ckpt",
+            "engine", "faults"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu"}
@@ -95,7 +97,8 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
              lambda: tsv.freeze(state),
              lambda: tsv.predict_snapshot(snap, X),
              lambda: tqo.update(table, y, y),
-             lambda: tqo.best_split(table)]
+             lambda: tqo.best_split(table),
+             lambda: teng.ServingEngine(CFG, state, lambda step: None)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU is visible"):
             call()
@@ -154,18 +157,26 @@ def test_qo_merge_routes_cpu_tensors_to_the_plain_version(monkeypatch):
 
 
 def test_distributed_builder_raises_without_gpu(no_gpu, tmp_path):
-    """``build_data_parallel_forest`` without ``device=`` raises before it
-    reads the group (a one-rank gloo group here)."""
+    """``build_data_parallel_forest``, ``build_sharded_forest`` and
+    ``build_sharded_serving`` without ``device=`` raise before they read
+    the group (a one-rank gloo group here)."""
     import datetime
     import torch.distributed as dist
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=30))
     try:
-        with pytest.raises(RuntimeError, match="no GPU is visible"):
-            tsh.build_data_parallel_forest(CFG)
+        state = tfr.init_forest(CFG, device="cpu")
+        snap = tsv.freeze(state, device="cpu")
+        for build in (lambda **k: tsh.build_data_parallel_forest(CFG, **k),
+                      lambda **k: tsh.build_sharded_forest(CFG, **k),
+                      lambda **k: tsh.build_sharded_serving(snap, **k)):
+            with pytest.raises(RuntimeError, match="no GPU is visible"):
+                build()
         init, _, _, _ = tsh.build_data_parallel_forest(CFG, device="cpu")
         assert init(0)["delta"]["ao_sum_x"].shape[0] == 1
+        sharded = tsh.build_sharded_forest(CFG, device="cpu")
+        assert sharded.shard(state)["vote_w"].device.type == "cpu"
     finally:
         dist.destroy_process_group()
 
