@@ -70,6 +70,9 @@ class EngineConfig:
                       audits (``snapshot_for_version``).
     staleness_factor: ``stale`` when the published snapshot's age exceeds
                       ``staleness_factor * sync_every`` trainer steps.
+    backend:          the reference's serving-backend knob; the port takes
+                      only ``None`` (the tensors' device selects kernel or
+                      plain version).
     """
     sync_every: int = 4
     ckpt_every: int = 1
@@ -77,6 +80,13 @@ class EngineConfig:
     max_batch_rows: int = 2048
     keep_versions: int = 4
     staleness_factor: float = 3.0
+    backend: Optional[str] = None
+
+    def __post_init__(self):
+        if self.backend is not None:
+            raise ValueError(
+                f"backend={self.backend!r}: the port takes only None (the "
+                f"tensors' device selects kernel or plain version)")
 
 
 class Ticket:

@@ -28,6 +28,7 @@ from repro_torch import device as dv
 from repro_torch.core import hoeffding as ht
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 ForestState = dict
 
@@ -143,7 +144,12 @@ def init_forest(cfg: ForestConfig, seed: int = 0, *, device=None,
 
 def _route_all(cfg: ForestConfig, trees, X):
     """(T, B) leaf ids: one route of every tree, bounded by ``max_depth``
-    (a row stops at its leaf, so no host read of the realized depth)."""
+    (a row stops at its leaf, so no host read of the realized depth); the
+    oracle engine walks each member with the scalar route."""
+    if cfg.tree.split_backend == "oracle":
+        return kref.forest_route_ref(trees["feature"], trees["threshold"],
+                                     trees["child"], trees["is_leaf"], X,
+                                     cfg.tree.max_depth)
     return kops.forest_route(trees["feature"], trees["threshold"],
                              trees["child"], trees["is_leaf"], X,
                              depth=cfg.tree.max_depth)
@@ -255,7 +261,21 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
     """All T member updates as one flat pass: route, per-leaf target stats,
     absorb (QO tables in place; sketch planes rebound), attempt
     (``ht.attempt_trees``, which the data-parallel sync runs on merged
-    statistics).  w: (T, B) sample weights."""
+    statistics).  w: (T, B) sample weights.  The oracle engine runs the
+    members one at a time through ``hoeffding.update`` instead, as the
+    reference's ``vmap(hoeffding.update)``."""
+    if cfg.tree.split_backend == "oracle":
+        T = w.shape[0]
+        members = [ht.update(cfg.tree,
+                             {k: ({kk: vv[t] for kk, vv in v.items()}
+                                  if isinstance(v, dict) else v[t])
+                              for k, v in trees.items()},
+                             X, y, w[t], feat_mask[t], device=X.device)
+                   for t in range(T)]
+        return {k: ({kk: torch.stack([m[k][kk] for m in members])
+                     for kk in v} if isinstance(v, dict)
+                    else torch.stack([m[k] for m in members]))
+                for k, v in trees.items()}
     gl, _, batch_leaf, rows = _fused_route_stats(cfg, trees, X, y, w)
     trees = dict(trees,
                  ystats=stats.merge(trees["ystats"], batch_leaf),

@@ -14,6 +14,14 @@ batch runs three stages:
   (:func:`repro_torch.kernels.ops.forest_best_splits`), decided
   (:mod:`repro_torch.core.decide`) and split.
 
+``split_backend="oracle"`` keeps the reference's seed engine as the
+correctness reference of those stages: the scalar routing walk
+(:func:`repro_torch.kernels.ref.route_ref`), one segment reduction over
+the flat M*F*C space and a Chan merge (:func:`_absorb_oracle`), and the plain
+single-table query of every table with the children's statistics by
+merge and subtraction (:func:`_do_attempts_oracle`).  It launches no
+kernel of the port, on any device.
+
 The attempt stage works on a leading tree axis (T, M, ...), so the forest
 (:mod:`repro_torch.core.forest`) and the single tree (T = 1) share one
 implementation, as the reference shares it through ``vmap``.  JAX's
@@ -40,6 +48,7 @@ from repro_torch import device as dv
 from repro_torch.core import decide as dc
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 TreeState = Dict[str, object]
 
@@ -60,8 +69,10 @@ class HTRConfig:
     max_depth: int = 12
     r0: float = 0.05              # cold-start quantization radius (paper §5.2)
     sigma_k: float = 2.0          # dynamic radius r = sigma / k for children
-    split_backend: str = "auto"   # the tensors' device picks kernel or plain
+    split_backend: str = "auto"   # auto | oracle (the seed engine)
     attempt_schedule: str = "grace"   # grace | eager
+    compact_query: bool = True    # query only the attempting tables; False
+    #                               queries every table (the full scan)
     decision_backend: str = "hoeffding"   # hoeffding | anytime
     alpha: float = 0.05           # anytime-valid false-split level
     # attribute-observer layout: "qo" keeps the dense (M, F, C) bin
@@ -88,14 +99,11 @@ class HTRConfig:
         if self.sketch_k < 2:
             raise ValueError(f"sketch_k={self.sketch_k}: need >= 2 slots "
                              f"for a split boundary to exist")
-        if self.split_backend == "oracle":
-            raise NotImplementedError(
-                "split_backend='oracle' (the seed engine) is not ported yet: "
-                "ROADMAP A13")
-        if self.split_backend != "auto":
+        if self.split_backend not in ("auto", "oracle"):
             raise ValueError(
-                f"split_backend={self.split_backend!r}: the port takes only "
-                f"'auto' (the tensors' device selects kernel or plain)")
+                f"split_backend={self.split_backend!r}: the port takes "
+                f"'auto' (the tensors' device selects kernel or plain) or "
+                f"'oracle' (the seed engine)")
         if self.attempt_schedule not in ("grace", "eager"):
             raise ValueError(
                 f"attempt_schedule={self.attempt_schedule!r}: expected "
@@ -151,6 +159,10 @@ def as_batch(X, y, w, dev):
 
 
 def _route(cfg: HTRConfig, state: TreeState, X):
+    if cfg.split_backend == "oracle":
+        return kref.route_ref(state["feature"], state["threshold"],
+                              state["child"], state["is_leaf"], X,
+                              cfg.max_depth)
     # bounded by max_depth: a row stops at its leaf, so no host read of the
     # realized depth is needed
     return kops.route(state["feature"], state["threshold"], state["child"],
@@ -186,6 +198,30 @@ def segment_stats(vals_y, seg, num: int, w, rows=None):
     m2 = torch.segment_reduce(ws * (ys - mean[seg[order].long()]) ** 2,
                               "sum", lengths=lengths)
     return {"n": n, "mean": mean, "m2": torch.where(n > 0, m2, 0.0)}
+
+
+def _absorb_oracle(cfg: HTRConfig, state: TreeState, leaf, X, y, w):
+    """The seed absorb: one segment reduction of each payload over the
+    flat M*F*C space (the rows sorted by segment, so no sum depends on
+    the order of atomics), then one Chan merge into the tables (new
+    tensors)."""
+    M, F, C = cfg.max_nodes, cfg.n_features, cfg.n_bins
+    leaf = leaf.long()
+    bins = kops.forest_bin_ids(state["ao_radius"], state["ao_origin"],
+                               leaf, X, C).long()
+    seg = ((leaf[:, None] * F + torch.arange(F, device=X.device)[None, :])
+           * C + bins).reshape(-1)
+    w_rep = w.repeat_interleave(F)
+    rows = kops.sort_rows(seg, M * F * C)
+    tile = segment_stats(y.repeat_interleave(F), seg, M * F * C, w_rep, rows)
+    order, offsets = rows
+    sum_x = torch.segment_reduce((w_rep * X.reshape(-1))[order.long()], "sum",
+                                 lengths=offsets[1:] - offsets[:-1])
+    return dict(state,
+                ao_y=stats.merge(state["ao_y"],
+                                 {k: v.reshape(M, F, C)
+                                  for k, v in tile.items()}),
+                ao_sum_x=state["ao_sum_x"] + sum_x.reshape(M, F, C))
 
 
 def attempt_mask(cfg: HTRConfig, state: TreeState):
@@ -228,7 +264,9 @@ def _apply_splits(cfg: HTRConfig, trees, merit, thr_all, attempt,
     merit/thr_all: (T, M, F) query results; attempt: (T, M) bool;
     feat_mask: optional (T, F) bool.  Small per-node arrays are copied
     before they are written; the QO tables of the new children are zeroed
-    in place."""
+    in place.  The children's target statistics come from the grouped
+    two-pass form, or under the oracle engine from the reference seed's
+    merge of the left bins and its subtraction from the table total."""
     T, M = attempt.shape
     want, best_f, dec_new = dc.decide(cfg, trees, merit, attempt, feat_mask)
     best_c = torch.gather(thr_all, -1, best_f[..., None])[..., 0]
@@ -271,8 +309,15 @@ def _apply_splits(cfg: HTRConfig, trees, merit, thr_all, attempt,
     maskL = (occ_f & (proto_f <= best_c[pt, pm][:, None])).to(torch.float32)
     maskR = occ_f.to(torch.float32) - maskL
     mean_f, m2_f = ao_y["mean"][pt, pm, bf], ao_y["m2"][pt, pm, bf]
-    left = _side(maskL, n_f, mean_f, m2_f)
-    right = _side(maskR, n_f, mean_f, m2_f)
+    if cfg.split_backend == "oracle":
+        bins_f = {"n": n_f, "mean": mean_f, "m2": m2_f}
+        left = stats.tree_reduce_merge(
+            {k: torch.where(maskL > 0, v, 0.0) for k, v in bins_f.items()},
+            1)
+        right = stats.subtract(stats.tree_reduce_merge(bins_f, 1), left)
+    else:
+        left = _side(maskL, n_f, mean_f, m2_f)
+        right = _side(maskR, n_f, mean_f, m2_f)
     ystats = {}
     for key in ("n", "mean", "m2"):
         a = trees["ystats"][key].clone()
@@ -294,23 +339,43 @@ def _apply_splits(cfg: HTRConfig, trees, merit, thr_all, attempt,
     return st
 
 
+def _do_attempts_oracle(cfg: HTRConfig, trees, ao_y, ao_sum_x, attempt,
+                        feat_mask=None):
+    """The seed engine's attempt: the plain single-table query of every
+    folded (T*M, F) table (:func:`repro_torch.kernels.ref.
+    forest_query_ref`), then the decision and the writes shared with the
+    kernel engine."""
+    T, M = attempt.shape
+    merit, thr = kref.forest_query_ref(ao_y, ao_sum_x, attempt.reshape(-1))
+    return _apply_splits(cfg, trees, merit.reshape(T, M, -1),
+                         thr.reshape(T, M, -1), attempt, feat_mask)
+
+
 def attempt_trees(cfg: HTRConfig, trees, feat_mask=None):
     """Attempt stage of a (T, M) batch of trees on their current stats:
     the scheduling mask plus the capacity gate, ONE compacted query over
-    the folded T*M table axis, then the decision and the writes."""
+    the folded T*M table axis, then the decision and the writes.  The
+    oracle engine has no capacity gate before its query (a full tree's
+    attempts still reset their grace counters, as in the reference)."""
     T, M = trees["is_leaf"].shape
     F = cfg.n_features
-    attempt = attempt_mask(cfg, trees) & (trees["n_nodes"][:, None] + 1 < M)
+    attempt = attempt_mask(cfg, trees)
+    if cfg.split_backend != "oracle":
+        attempt = attempt & (trees["n_nodes"][:, None] + 1 < M)
     if not bool(attempt.any()):   # host branch: the reference's lax.cond
         return trees
     fold = lambda a: a.reshape((T * M,) + a.shape[2:])
     ao_y = {k: fold(v) for k, v in trees["ao_y"].items()}
     ao_sum_x = fold(trees["ao_sum_x"])
+    if cfg.split_backend == "oracle":
+        return _do_attempts_oracle(cfg, trees, ao_y, ao_sum_x, attempt,
+                                   feat_mask)
     if cfg.observer_backend == "sketch":
         # sorted centroids ARE a sorted bin table: the QO query, the
         # decision and the writes ride unchanged over the K-slot planes
         ao_y, ao_sum_x = kops.sketch_to_bins(ao_y, ao_sum_x)
-    merit, thr = kops.forest_best_splits(ao_y, ao_sum_x, attempt.reshape(-1))
+    merit, thr = kops.forest_best_splits(ao_y, ao_sum_x, attempt.reshape(-1),
+                                         compact=cfg.compact_query)
     return _apply_splits(cfg, trees, merit.reshape(T, M, F),
                          thr.reshape(T, M, F), attempt, feat_mask)
 
@@ -336,6 +401,13 @@ def update_local(cfg: HTRConfig, state: TreeState, X, y, w=None, *,
     X, y, w = as_batch(X, y, w, dev)
     M = cfg.max_nodes
     leaf = _route(cfg, state, X)                                   # (B,)
+    if cfg.split_backend == "oracle":
+        batch_leaf = segment_stats(y, leaf, M, w)
+        state = dict(state,
+                     ystats=stats.merge(state["ystats"], batch_leaf),
+                     seen_since_attempt=state["seen_since_attempt"]
+                     + batch_leaf["n"])
+        return _absorb_oracle(cfg, state, leaf, X, y, w)
     rows = kops.sort_rows(leaf, M)      # one sort: stats and absorb share it
     batch_leaf = segment_stats(y, leaf, M, w, rows)
     state = dict(state,

@@ -14,14 +14,28 @@ import torch
 
 Stats = Dict[str, torch.Tensor]  # {"n": f32, "mean": f32, "m2": f32}
 
-__all__ = ["init", "observe", "merge", "subtract", "variance", "stddev",
-           "from_batch", "tree_reduce_merge"]
+__all__ = ["init", "from_single", "observe", "merge", "subtract",
+           "variance", "stddev", "zeros_like", "from_batch", "stack",
+           "tree_reduce_merge"]
 
 
 def init(shape=(), device=None, dtype=torch.float32) -> Stats:
     """Empty statistics (n=0). Identity element of :func:`merge`."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k in ("n", "mean", "m2")}
+
+
+def zeros_like(s: Stats) -> Stats:
+    return {k: torch.zeros_like(v) for k, v in s.items()}
+
+
+def from_single(y, w=1.0) -> Stats:
+    """Statistics of a single (optionally weighted) observation: n = w,
+    mean = y, M2 = 0, broadcast to y's shape."""
+    y = torch.as_tensor(y, dtype=torch.float32)
+    w = torch.as_tensor(w, dtype=torch.float32, device=y.device)
+    return {"n": w.expand(y.shape).clone(), "mean": y,
+            "m2": torch.zeros_like(y)}
 
 
 def observe(s: Stats, y, w=1.0) -> Stats:
@@ -101,3 +115,9 @@ def from_batch(y: torch.Tensor, w=None, dim: int = 0) -> Stats:
     m2 = (w * (y - mean.unsqueeze(dim)) ** 2).sum(dim=dim)
     mean = torch.where(n > 0, mean, 0.0)
     return {"n": n, "mean": mean, "m2": m2}
+
+
+def stack(stats_list) -> Stats:
+    """Stack Stats of one shape along a new leading axis."""
+    return {k: torch.stack([s[k] for s in stats_list])
+            for k in stats_list[0]}

@@ -17,8 +17,10 @@ started together, through :func:`build`.  Nothing here runs at import.
 Both take one module lock, so threads that reach a kernel's first use
 together (a serving engine's trainer and server) build it once.
 
-``LAUNCHES`` holds one integer per kernel; each wrapper adds one where it
-launches its kernel and nowhere else.
+``LAUNCHES`` holds one integer per kernel entry point, under the source's
+name where a source has one entry point and under ``ebst_insert`` and
+``ebst_query`` for the two of ``csrc/ebst.cu``; each wrapper adds one
+where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -34,13 +36,14 @@ __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build", "library",
            "check", "BuildError"]
 
 SOURCES = ("qo_route", "qo_update_leaves", "qo_query_batched",
-           "sketch_compact", "qo_update", "qo_query", "qo_merge")
+           "sketch_compact", "qo_update", "qo_query", "qo_merge", "ebst")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in SOURCES[:-1] + ("ebst_insert",
+                                                 "ebst_query")}
 _LOCK = threading.Lock()
 _LIBRARIES: dict = {}
 

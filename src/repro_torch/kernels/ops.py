@@ -99,20 +99,30 @@ def forest_merge(a_y, a_sum_x, b_y, b_sum_x):
     return {"n": n, "mean": mean, "m2": m2}, sum_x
 
 
-def forest_best_splits(ao_y, ao_sum_x, attempt):
+def forest_best_splits(ao_y, ao_sum_x, attempt, compact: bool = True):
     """Best split candidate of every attempting (leaf, feature) table.
 
     attempt: (N,) bool.  The K attempting rows are compacted with
     ``torch.nonzero`` (one host read of K) and only they are queried; K = 0
-    queries nothing.  Returns (merit, thr), both (N, F): -inf / 0 on rows
-    that do not attempt or have no valid boundary.
+    queries nothing.  ``compact=False`` queries all N rows in one launch
+    and masks the rows that do not attempt (the full-scan reference; the
+    same values, since every table is queried on its own).  Returns
+    (merit, thr), both (N, F): -inf / 0 on rows that do not attempt or
+    have no valid boundary.
     """
     N, F, _ = ao_sum_x.shape
     dev = ao_sum_x.device
+    attempt = attempt.reshape(-1)
+    if not compact:
+        mk, tk = qo_query_batched.best_splits(
+            ao_y, ao_sum_x, torch.arange(N, dtype=torch.int32, device=dev))
+        keep = attempt[:, None]
+        return (torch.where(keep, mk, float("-inf")),
+                torch.where(keep, tk, 0.0))
     merit = torch.full((N, F), float("-inf"), dtype=torch.float32,
                        device=dev)
     thr = torch.zeros((N, F), dtype=torch.float32, device=dev)
-    rows = torch.nonzero(attempt.reshape(-1)).reshape(-1)
+    rows = torch.nonzero(attempt).reshape(-1)
     if rows.numel() == 0:
         return merit, thr
     mk, tk = qo_query_batched.best_splits(ao_y, ao_sum_x,

@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import stats
 from repro_torch.kernels import _build
 
-__all__ = ["scores_plain", "argmax_nan_first", "best_plain", "best_kernel",
+__all__ = ["prefix_merge", "boundaries", "scores_plain", "argmax_nan_first", "best_plain", "best_kernel",
            "best", "SplitResult", "split", "MAX_BINS"]
 
 #: Largest C the kernel takes: its per-chunk records (52 bytes a chunk of
@@ -47,22 +47,25 @@ def _shift_right(a, d, fill):
     return torch.cat([pad, a[..., :-d]], -1)
 
 
-def scores_plain(n, mean, m2, sum_x):
-    """(score, cand) rows, both shaped like the (..., C) planes."""
+def prefix_merge(s):
+    """Inclusive prefix Chan merge of a Stats dict along its last axis:
+    Hillis-Steele, log2(C) merges of the planes with their shifted selves
+    (an empty operand is the merge's exact identity)."""
+    C = s["n"].shape[-1]
+    d = 1
+    while d < C:
+        s = stats.merge({k: _shift_right(v, d, 0.0) for k, v in s.items()},
+                        s)
+        d *= 2
+    return s
+
+
+def boundaries(n, sum_x):
+    """(ok, cand), both shaped like the (..., C) planes: whether an
+    occupied bin exists at or before bin i and another after it, and the
+    midpoint of those two bins' prototypes ``sum_x / n``."""
     C = n.shape[-1]
     occ = n > 0
-    left = {"n": n, "mean": mean, "m2": m2}
-    d = 1
-    while d < C:      # Hillis-Steele inclusive prefix merge over the bins
-        left = stats.merge({k: _shift_right(v, d, 0.0)
-                            for k, v in left.items()}, left)
-        d *= 2
-    tot = {k: v[..., -1:].expand_as(v) for k, v in left.items()}
-    right = stats.subtract(tot, left)
-    n_tot = torch.clamp(tot["n"], min=1.0)
-    vr = stats.variance(tot) - (left["n"] / n_tot) * stats.variance(left) \
-        - (right["n"] / n_tot) * stats.variance(right)
-
     proto = torch.where(occ, sum_x / torch.where(occ, n, 1.0), 0.0)
     idx = torch.arange(C, device=n.device).expand(n.shape)
     last = torch.cummax(torch.where(occ, idx, -1), -1).values
@@ -74,6 +77,18 @@ def scores_plain(n, mean, m2, sum_x):
     ok = (last >= 0) & (nxt < C)
     cand = 0.5 * (torch.gather(proto, -1, torch.clamp(last, min=0))
                   + torch.gather(proto, -1, torch.clamp(nxt, max=C - 1)))
+    return ok, cand
+
+
+def scores_plain(n, mean, m2, sum_x):
+    """(score, cand) rows, both shaped like the (..., C) planes."""
+    left = prefix_merge({"n": n, "mean": mean, "m2": m2})
+    tot = {k: v[..., -1:].expand_as(v) for k, v in left.items()}
+    right = stats.subtract(tot, left)
+    n_tot = torch.clamp(tot["n"], min=1.0)
+    vr = stats.variance(tot) - (left["n"] / n_tot) * stats.variance(left) \
+        - (right["n"] / n_tot) * stats.variance(right)
+    ok, cand = boundaries(n, sum_x)
     return torch.where(ok, vr, float("-inf")), cand
 
 

@@ -369,6 +369,12 @@ def _build(cfg, dev, n_shards, shards, make_state, reduce, sync_every,
                               predict_fn)
 
 
+def _refuse_oracle(cfg: fr.ForestConfig) -> None:
+    if cfg.tree.split_backend == "oracle":
+        raise ValueError("data-parallel training needs the kernel engine: "
+                         "the oracle engine updates members one at a time")
+
+
 def build_data_parallel_reference(cfg: fr.ForestConfig, n_shards: int,
                                   sync_every: int = 1, on_sync=None, *,
                                   device=None) -> DataParallelForest:
@@ -381,6 +387,7 @@ def build_data_parallel_reference(cfg: fr.ForestConfig, n_shards: int,
     ``on_sync``: optional ``on_sync(forest_state, step, aux)``, called at
     every sync boundary with the freshly merged forest (the publish
     boundary of a serving engine)."""
+    _refuse_oracle(cfg)
     dev = dv.resolve(device)
     return _build(cfg, dev, n_shards, range(n_shards),
                   lambda seed=0: init_data_parallel(cfg, seed, n_shards,
@@ -416,6 +423,7 @@ def build_data_parallel_forest(cfg: fr.ForestConfig, group=None,
     """
     import torch.distributed as dist
 
+    _refuse_oracle(cfg)
     if compress not in (None, "int8"):
         raise ValueError(f"compress={compress!r}: expected None or 'int8'")
     if compress == "int8" and cfg.tree.observer_backend == "sketch":

@@ -20,13 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import ebst as tebst
 from repro_torch.core import engine as teng
 from repro_torch.core import forest as tfr
 from repro_torch.core import hoeffding as tht
+from repro_torch.core import multi as tmulti
 from repro_torch.core import qo as tqo
 from repro_torch.core import serve as tsv
 from repro_torch.kernels import _build
-from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
+from repro_torch.kernels import (ebst, qo_merge, qo_query, qo_query_batched,
                                  qo_route, qo_update, qo_update_leaves,
                                  sketch_compact)
 from repro_torch.train import sharding as tsh
@@ -62,10 +64,13 @@ def test_every_port_module_is_scanned():
             "qo_route", "qo_update_leaves", "qo_query_batched", "_build",
             "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
             "sketch_compact", "qo_merge", "sharding", "compress", "ckpt",
-            "engine", "faults"} <= names
+            "engine", "faults", "ebst", "multi", "monitor", "ref"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
-        "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu"}
+        "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",
+        "ebst.cu"}
+    assert set(_build.SOURCES) == {p.stem for p in
+                                   (PORT / "csrc").glob("*.cu")}
 
 
 @pytest.fixture
@@ -86,6 +91,12 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
         tsh.build_data_parallel_reference(CFG, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsh.init_data_parallel(CFG, 0, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tebst.init(16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmulti.init(16, 2, 0.1)
+    bst = tebst.init(16, device="cpu")
+    mt = tmulti.init(16, 2, 0.1, device="cpu")
     tree = tht.init_state(CFG.tree, device="cpu")
     table = tqo.init(16, 0.1, device="cpu")
     state = tfr.init_forest(CFG, device="cpu")
@@ -98,6 +109,10 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
              lambda: tsv.predict_snapshot(snap, X),
              lambda: tqo.update(table, y, y),
              lambda: tqo.best_split(table),
+             lambda: tebst.update(bst, y, y),
+             lambda: tebst.best_split(bst),
+             lambda: tmulti.update(mt, y, np.zeros((4, 2), np.float32)),
+             lambda: tmulti.best_split(mt),
              lambda: teng.ServingEngine(CFG, state, lambda step: None)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU is visible"):
@@ -140,6 +155,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         qo_query.best_kernel(*one)
     with pytest.raises(ValueError, match="qo_merge"):
         qo_merge.merge_kernel(*one, *one)
+    bst = tebst.init(8, device="cpu")
+    with pytest.raises(ValueError, match="ebst_insert"):
+        ebst.insert_kernel(bst, torch.zeros(2), torch.zeros(2))
+    with pytest.raises(ValueError, match="ebst_query"):
+        ebst.query_kernel(bst)
 
 
 def test_qo_merge_routes_cpu_tensors_to_the_plain_version(monkeypatch):
@@ -187,8 +207,9 @@ def test_config_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="no oracle engine"):
         tht.HTRConfig(n_features=3, observer_backend="sketch",
                       split_backend="oracle")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tht.HTRConfig(n_features=3, split_backend="oracle")
+    oracle = tht.HTRConfig(n_features=3, split_backend="oracle")
+    assert oracle.split_backend == "oracle"
+    assert not tht.HTRConfig(n_features=3, compact_query=False).compact_query
     for backend in ("jnp", "pallas", "interpret", "cuda"):
         with pytest.raises(ValueError, match="auto"):
             tht.HTRConfig(n_features=3, split_backend=backend)

@@ -105,3 +105,27 @@ def test_gaussian_streams_within_tolerance(seed):
     np.testing.assert_allclose(tstats.variance(tm).numpy(),
                                np.asarray(jstats.variance(jm)),
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("w", [1.0, 2.5])
+def test_from_single_zeros_like_and_stack_match_reference(w):
+    rng = np.random.default_rng(7)
+    y = rng.normal(0, 1, (3, 4)).astype(np.float32)
+    j = jstats.from_single(jnp.asarray(y), w)
+    t = tstats.from_single(torch.tensor(y), w)
+    for k in ("n", "mean", "m2"):
+        np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]))
+        assert t[k].dtype == torch.float32
+    for k, v in tstats.zeros_like(t).items():
+        np.testing.assert_array_equal(v.numpy(),
+                                      np.asarray(jstats.zeros_like(j)[k]))
+    parts = [{k: rng.normal(0, 1, 5).astype(np.float32)
+              for k in ("n", "mean", "m2")} for _ in range(3)]
+    js = jstats.stack([_pair(p)[0] for p in parts])
+    ts = tstats.stack([_pair(p)[1] for p in parts])
+    for k in ("n", "mean", "m2"):
+        np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]))
+    # one observation observed into the empty stats is from_single
+    one = tstats.observe(tstats.init((3, 4)), torch.tensor(y))
+    for k in ("n", "mean", "m2"):
+        assert torch.equal(one[k], tstats.from_single(torch.tensor(y))[k])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run ``tests/test_torch_kernels.py::TestOnCard`` on a GPU machine without
-JAX: the module's JAX and reference imports (which only its CPU tests use)
-are stubbed with empty modules.
+"""Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py`` and
+``tests/test_torch_ebst.py`` on a GPU machine without JAX: the modules'
+JAX and reference imports (which only their CPU tests use) are stubbed
+with empty modules.
 
     python3 tools_torch/card_tests.py [pytest arguments]
 
@@ -16,12 +17,14 @@ import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-for name in ("jax", "jax.numpy", "repro", "repro.kernels",
-             "repro.kernels.ops"):
+STUBS = ("jax", "jax.numpy", "repro", "repro.kernels", "repro.kernels.ops",
+         "repro.core", "repro.core.ebst")
+for name in STUBS:
     sys.modules[name] = types.ModuleType(name)
-sys.modules["jax"].numpy = sys.modules["jax.numpy"]
-sys.modules["repro"].kernels = sys.modules["repro.kernels"]
-sys.modules["repro.kernels"].ops = sys.modules["repro.kernels.ops"]
+for name in STUBS:
+    parent, _, child = name.rpartition(".")
+    if parent:
+        setattr(sys.modules[parent], child, sys.modules[name])
 sys.path.insert(0, os.path.join(ROOT, "src"))
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
@@ -37,5 +40,6 @@ import pytest  # noqa: E402
 
 sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
                       "-p", "no:randomly", *sys.argv[1:],
-                      os.path.join(ROOT, "tests", "test_torch_kernels.py")
-                      + "::TestOnCard"]))
+                      *(os.path.join(ROOT, "tests", f) + "::TestOnCard"
+                        for f in ("test_torch_kernels.py",
+                                  "test_torch_ebst.py"))]))
