@@ -131,7 +131,23 @@ Phases:
     ``sparsify_with_sketch`` on one qwen3-8b block's gradients (~193 M f32)
     beside ``torch.kthvalue``; the oracle engine on the first forest over
     8 batches: nodes per tree equal to the kernel path's, held-out MSE
-    within 1 %, no kernel of the port launched.
+    within 1 %, no kernel of the port launched;
+16. the perf layer (``repro_torch.perf``): ``tune.tune`` at the QO
+    forest's full width (T=16, M=1023, F=16, C=64, B=4096) for the
+    forest families and at K=16 for the sketch families, every candidate
+    of every grid bitwise equal to the defaults before it is timed, one
+    line a family (candidates, the default's and the winner's device us
+    of the kernel the knobs steer, the race's spread, the winner's
+    params); the cache saved to a temporary file, reloaded,
+    keyed by the card's name and installed; phase 7's 8-step window rerun
+    with the table installed, trees and tables bitwise equal to the
+    untuned run, ms a step and device busy beside phase 7's; ``op_costs``
+    of one ``forest.update`` step (flops, bytes, the floor of that work)
+    beside its device time; one ``profile.trace`` of a step, parsed, holding each
+    kernel the step launched; ``python -m repro_torch.perf.tune --smoke``
+    in a subprocess, exit 0.  Phase 16 runs in a process of its own:
+    after phase 12's engine threads, ``torch.profiler`` records no device
+    activity in this one.
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -162,8 +178,6 @@ TOL = 1e-4
 # ``sketch.merge_planes`` of the tree before the fused kernel, timed as
 # phase 3 times it, NVIDIA H100 80GB HBM3, 700 W.
 PARENT_STAGE_MS = (3.2984, 3.2929)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 
 
 def _close(a, b, what, scale=0.0):
@@ -203,26 +217,17 @@ def _time_ms(fn, reps=20, warm=3):
 
 
 def _device_ms(fn, reps=10):
-    """Device time of one call of ``fn``, in ms: the profiler's CUDA
-    kernel time over ``reps`` calls (after a warm-up call).  A window in
-    which the profiler recorded fewer device events than calls (it can
-    drop a window's activity) is profiled again, up to three times; if
-    all three drop, CUDA events around ``reps`` back-to-back calls give the
-    stream's time a call instead (an upper bound: host gaps between the
-    launches count), and a line says so."""
+    """Device time of one call of ``fn``, in ms: the profiler's kernel
+    time over ``reps`` calls (``repro_torch.perf.profile.device_times``).
+    If the profiler dropped all three of its windows, CUDA events around
+    ``reps`` back-to-back calls give the stream's time a call instead (an
+    upper bound: host gaps between the launches count), and a line says
+    so."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.count for e in events) >= reps:
-            return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    from repro_torch.perf import profile
+    times = profile.device_times(fn, reps)
+    if times:
+        return sum(times.values())
     print(f"    the profiler dropped three windows: the next device time is "
           f"the CUDA-event time of {reps} back-to-back calls", flush=True)
     start = torch.cuda.Event(enable_timing=True)
@@ -256,17 +261,14 @@ def stream_batches(seed, dev):
             for i in range(0, n_rows, B)]
 
 
-def _bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _profile(cfg, batches, seed, dev, tag="[7]"):
-    """Phase 7: where the time of a mid-growth learned batch goes."""
+    """Phase 7: where the time of a mid-growth learned batch goes.
+    Returns the unprofiled ms a step and the device ms a step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.core import forest as fr
+    from repro_torch.kernels import qo_query_batched
+    from repro_torch.perf import profile
     state = fr.init_forest(cfg, seed, device=dev)
     for Xb, yb in batches[:WARM_BATCHES]:
         state, _ = fr.update(cfg, state, Xb, yb, device=dev)
@@ -281,24 +283,25 @@ def _profile(cfg, batches, seed, dev, tag="[7]"):
     for Xb, yb in batches[:WARM_BATCHES]:
         state, _ = fr.update(cfg, state, Xb, yb, device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for Xb, yb in window:
             state, _ = fr.update(cfg, state, Xb, yb, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(prof, len(window), wall, plain_wall, "mid-growth steps", tag)
+    busy = _report(prof, len(window), wall, plain_wall, "mid-growth steps",
+                   tag)
     queried, left_out = _queried_tables(cfg, batches, seed, dev)
     slots = cfg.tree.observer_bins()
     tables = statistics.mean(queried)
-    bound, _ = _bound(tables * (slots * 16 + 8) + tables / F * 4,
-                      tables * slots * 30)
+    bound, _ = profile.bound(*qo_query_batched.cost(tables / F, F, slots))
     print(f"{tag} qo_query_batched: {len(queried)} launches of "
           f"{tables:.0f} tables of C={slots} on average "
           f"({min(queried)}-{max(queried)}), bound {bound:.5f} ms a launch"
           + (f" ({left_out} steps with a drift swap left out)"
              if left_out else ""), flush=True)
+    return plain_wall / len(window) * 1e3, busy / len(window)
 
 
 def _queried_tables(cfg, batches, seed, dev):
@@ -342,13 +345,11 @@ def _queried_tables(cfg, batches, seed, dev):
 
 def _report(prof, n, wall, plain_wall, what, tag):
     """Print a profiled window: wall times, device-busy share, the port's
-    kernels, the top device kernels and the top host operations."""
-    import torch
+    kernels, the top device kernels and the top host operations.  Returns
+    the window's device-busy ms."""
+    from repro_torch.perf import profile
     ev = prof.key_averages()
-    # device-side events only (kernels, copies): an ATen op's own
-    # self_device_time_total repeats the time of the kernels it launched
-    kernels = [e for e in ev
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = profile.device_events(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3  # ms
     print(f"{tag} {n} {what}: {plain_wall / n * 1e3:.3f} ms each "
           f"unprofiled; profiled {wall / n * 1e3:.3f} ms each with device "
@@ -382,6 +383,7 @@ def _report(prof, n, wall, plain_wall, what, tag):
     for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:15]:
         print(f"    {e.self_cpu_time_total / 1e3 / n:8.4f}  "
               f"{e.count / n:6.1f}  {e.key[:100]}", flush=True)
+    return busy
 
 
 def _wrapper_of(kernel):
@@ -460,6 +462,7 @@ def _route_row(trees, Xk):
     import torch
     from repro_torch.kernels import _build, qo_route
     from repro_torch.kernels import ops as kops
+    from repro_torch.perf import profile
     arrays = [trees[k] for k in ("feature", "threshold", "child", "is_leaf")]
     call = lambda: kops.forest_route(*arrays, Xk, depth=DEPTH)
     before = _build.LAUNCHES["qo_route"]
@@ -479,12 +482,12 @@ def _route_row(trees, Xk):
     if not torch.equal(kops.forest_route(*big, Xk, depth=DEPTH), ids):
         raise AssertionError(f"qo_route: the trees padded to M = "
                              f"{ROUTE_BIG_M} route elsewhere")
-    # bytes: the four arrays' allocated nodes (17 B each; the slots past
-    # n_nodes are never reached), X, the ids; operations: a compare and a
-    # select a ply actually walked
+    # the nodes the trees have allocated (the slots past n_nodes are never
+    # reached) and the plies the rows actually walked
     nodes = int(trees["n_nodes"].sum())
     plies = int(torch.gather(trees["depth"], 1, ids.long()).sum())
-    bound, by = _bound(nodes * 17 + Xk.numel() * 4 + T * B * 4, plies * 2)
+    bound, by = profile.bound(*qo_route.cost(T, M, B, F, DEPTH, nodes=nodes,
+                                             walked=plies))
     row = dict(
         name="qo_route", route="cuda",
         source="src/repro_torch/csrc/qo_route.cu",
@@ -534,21 +537,10 @@ def _sketch_inputs(scfg, sbatches, seed, dev):
 
 
 def _device_kernels(fn):
-    """Names of the device operations one call of ``fn`` runs (a window
-    the profiler recorded nothing of is profiled again, up to three
-    times)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            return names
-    return []
+    """Names of the device operations one call of ``fn`` runs (no warm-up
+    call: the caller counts this call's launches)."""
+    from repro_torch.perf import profile
+    return list(profile.device_times(fn, reps=1, warm=False))
 
 
 def _sketch_compact_row(sin):
@@ -559,6 +551,7 @@ def _sketch_compact_row(sin):
     import torch
     from repro_torch.core import sketch as sk
     from repro_torch.kernels import _build, sketch_compact
+    from repro_torch.perf import profile
     old, new = sin["old"], sin["new"]
     before = _build.LAUNCHES["sketch_compact"]
     ops = _device_kernels(lambda: sketch_compact.compact_kernel(old, KS, new))
@@ -577,7 +570,7 @@ def _sketch_compact_row(sin):
                zip(out_k, sketch_compact.compact_kernel(old, KS, new))):
         raise AssertionError("sketch_compact: a rerun differs")
     R, J = old[0].shape[0], 2 * KS
-    bound, by = _bound(R * J * 16 + R * KS * 16, R * J * 20)
+    bound, by = profile.bound(*sketch_compact.cost(R, J, KS))
     fn = lambda: sketch_compact.compact_kernel(old, KS, new)
     row = dict(
         name="sketch_compact", route="cuda",
@@ -635,6 +628,7 @@ def _query_row(ty, tsx, qrows, what, timed_plain):
     Returns the kernel's row (``plain_ms`` only if ``timed_plain``)."""
     import torch
     from repro_torch.kernels import qo_query_batched
+    from repro_torch.perf import profile
     K, (_, Fq, Cq) = qrows.numel(), tsx.shape
     merit_k, thr_k = qo_query_batched.best_splits_kernel(ty, tsx, qrows)
     merit_p, thr_p = qo_query_batched.best_splits_plain(ty, tsx, qrows)
@@ -657,8 +651,7 @@ def _query_row(ty, tsx, qrows, what, timed_plain):
     again = qo_query_batched.best_splits_kernel(ty, tsx, qrows)
     if not (torch.equal(merit_k, again[0]) and torch.equal(thr_k, again[1])):
         raise AssertionError(f"qo_query_batched ({what}): a rerun differs")
-    nbytes = K * Fq * Cq * 16 + K * 4 + K * Fq * 8
-    bound, by = _bound(nbytes, K * Fq * Cq * 30)
+    bound, by = profile.bound(*qo_query_batched.cost(K, Fq, Cq))
     fn = lambda: qo_query_batched.best_splits_kernel(ty, tsx, qrows)
     row = dict(
         name="qo_query_batched", route="cuda",
@@ -742,6 +735,7 @@ def _qo_rows(seed, dev):
     from repro_torch.core import qo
     from repro_torch.data import synth
     from repro_torch.kernels import qo_query, qo_update
+    from repro_torch.perf import profile
     xw, yw = _paper_stream(synth.SynthConfig(noise_frac=0.1, n=QO_ROWS,
                                              seed=seed + 100), dev)
     r, o = qo.auto_radius(xw, k=2.0)
@@ -771,7 +765,7 @@ def _qo_rows(seed, dev):
     one_ms = _time_ms(lambda: qo_update.update_kernel(*one))
     print(f"[3] qo_update: {QO_ROWS} rows in one bin: n exact, rerun "
           f"bitwise equal, {one_ms:.4f} ms a call", flush=True)
-    bound, by = _bound(QO_ROWS * 12 + QO_BINS * 16 * 2 + 8, QO_ROWS * 20)
+    bound, by = profile.bound(*qo_update.cost(QO_ROWS, QO_BINS))
     rows = [dict(
         name="qo_update", route="cuda", source="src/repro_torch/csrc/qo_update.cu",
         replaces="src/repro/kernels/qo_update.py:108", max_abs_err=err,
@@ -785,7 +779,7 @@ def _qo_rows(seed, dev):
     planes = [a.contiguous() for a in out_k]
     k, p = qo_query.best_kernel(*planes), qo_query.best_plain(*planes)
     err = _check_qo_query(planes, k, p, "qo_query")
-    bound, by = _bound(QO_BINS * 16 + QO_BINS * 8 + 12, QO_BINS * 60)
+    bound, by = profile.bound(*qo_query.cost(QO_BINS))
     rows.append(dict(
         name="qo_query", route="cuda", source="src/repro_torch/csrc/qo_query.cu",
         replaces="src/repro/kernels/qo_query.py:121", max_abs_err=err,
@@ -982,6 +976,7 @@ def _qo_merge_row(cfg, batches, seed, dev):
     folded -- on the deltas after 8 DP batches and one more local step."""
     import torch
     from repro_torch.kernels import qo_merge
+    from repro_torch.perf import profile
     from repro_torch.train import sharding as sh
     init, upd, _, _ = sh.build_data_parallel_reference(cfg, DP_SHARDS,
                                                        DP_SYNC, device=dev)
@@ -1001,7 +996,7 @@ def _qo_merge_row(cfg, batches, seed, dev):
                                  f"version")
     err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
     E = planes[0].numel()
-    bound, by = _bound(12 * 4 * E, 14 * E)
+    bound, by = profile.bound(*qo_merge.cost(E))
     occupied = int((planes[0] > 0).sum() + (planes[4] > 0).sum())
     print(f"[3] qo_merge: 2 x ({planes[0].shape[0]}, {F}, {C}) tables, "
           f"{occupied} occupied cells of {2 * E}, bitwise equal to the "
@@ -1668,6 +1663,7 @@ def _ebst_rows(seed, dev, chase):
     from repro_torch.core import ebst
     from repro_torch.data import synth
     from repro_torch.kernels import ebst as kebst
+    from repro_torch.perf import profile
     n = EBST_ROWS
     x, y = synth.generate(synth.SynthConfig("normal", 0, "lin", 0.1, n, seed))
     rng = np.random.default_rng(seed + 3)
@@ -1730,8 +1726,9 @@ def _ebst_rows(seed, dev, chase):
               f"{q_ms * 1e6 / size:.1f} ns a node); plain versions "
               f"{plain_ins:.1f} / {plain_q:.1f} ms on the host", flush=True)
     e = out["E-BST"]
-    ins_bound, ins_by = _bound(n * 8 + e["cap"] * 24 * 2, e["visits"] * 8)
-    q_bound, q_by = _bound(e["size"] * 24 + 12, e["size"] * 40)
+    ins_bound, ins_by = profile.bound(*kebst.insert_cost(n, e["cap"],
+                                                         e["visits"]))
+    q_bound, q_by = profile.bound(*kebst.query_cost(e["size"]))
     note = ("no Pallas kernel exists: the reference lowers it to one "
             "lax.while_loop program")
     return [dict(name="ebst_insert", route="cuda",
@@ -2095,6 +2092,174 @@ def _phase15(batches, seed, dev):
     _sparsify_check(seed, dev)
     _oracle_check(batches, seed, dev)
 
+#: The kernels of a QO forest step: a substring of each one's device name,
+#: by its launch count's name.
+STEP_KERNELS = {"qo_route": "qo_route_kernel",
+                "qo_update_leaves": "qo_update_leaves_pieces_kernel",
+                "qo_query_batched": "qo_query_batched_kernel"}
+
+
+def _window(cfg, batches, seed, dev):
+    """Phase 7's window: a fresh forest, 8 warm-up batches, then 8 steps
+    timed.  Returns (state, ms a step)."""
+    import torch
+    from repro_torch.core import forest as fr
+    state = fr.init_forest(cfg, seed, device=dev)
+    for Xb, yb in batches[:WARM_BATCHES]:
+        state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for Xb, yb in batches[WARM_BATCHES:2 * WARM_BATCHES]:
+        state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / WARM_BATCHES * 1e3
+
+
+def _tuning_phase(cfg, batches, seed, dev, smi, phase7):
+    """Phase 16: the perf layer on the card.  The tuner at phase 7's full
+    width (and the sketch families at K = 16), every candidate through the
+    identity gate; its cache saved, reloaded and installed; phase 7's
+    window rerun tuned, bitwise equal to the untuned one; ``op_costs`` of
+    a step beside its device time; a trace of a step holding each kernel
+    the step launched; ``python -m repro_torch.perf.tune --smoke``."""
+    import glob
+    import tempfile
+    import torch
+    from repro_torch.core import forest as fr
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.perf import profile
+    from repro_torch.perf import tune as ptune
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tuning_")
+    entries = ptune.tune(("forest_query", "forest_route", "forest_merge"),
+                         "cuda", shapes=dict(T=T, M=M, F=F, C=C, B=B))
+    entries.update(ptune.tune(("sketch_update", "sketch_merge"), "cuda",
+                              shapes=dict(T=T, M=M, F=F, C=KS, B=B)))
+    for key, e in sorted(entries.items()):
+        print(f"[16] {key}: {e['n_candidates']} candidates, every one "
+              f"bitwise equal to the defaults; the steered kernel's device "
+              f"time {e['default_us']:.2f} us a call at the defaults, "
+              f"{e['us']:.2f} us for the winner {e['params']} (a winner must "
+              f"beat the defaults by more than the race's spread, "
+              f"{e['spread_us']:.2f} us; whole call: host "
+              f"{e['default_host_us']:.1f} / {e['host_us']:.1f} us, events "
+              f"{e['default_event_us']:.1f} / {e['event_us']:.1f} us; {smi})",
+              flush=True)
+    path = ptune.save_cache(entries, os.path.join(tmp, "tuning.json"))
+    loaded = ptune.load_cache(path)
+    if loaded != json.loads(json.dumps(entries)):
+        raise AssertionError("the tuning cache did not reload as written")
+    kind = torch.cuda.get_device_name(0)
+    if not all(k.startswith(kind + "|") for k in loaded):
+        raise AssertionError(f"a cache key is not keyed by {kind!r}")
+    installed = ptune.install(loaded)
+    if len(installed) != len(entries):
+        raise AssertionError("install dropped this card's entries")
+    moved = {k: v for k, v in installed.items()
+             if v != kops.DEFAULT_PARAMS[k[0]]}
+    print(f"[16] cache {len(loaded)} entries keyed {kind!r}, reloaded and "
+          f"installed; off the defaults: {moved or 'none'}", flush=True)
+
+    # phase 7's window, tuned against untuned
+    table = kops.get_tuning()
+    kops.set_tuning({})
+    untuned, ms_u = _window(cfg, batches, seed, dev)
+    kops.set_tuning(table)
+    tuned, ms_t = _window(cfg, batches, seed, dev)
+    _same(untuned, tuned, "tuned window")
+    del untuned
+    state = fr.init_forest(cfg, seed, device=dev)
+    for Xb, yb in batches[:WARM_BATCHES]:
+        state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+    window = batches[WARM_BATCHES:2 * WARM_BATCHES]
+    busy = 0.0
+    for Xb, yb in window:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+            torch.cuda.synchronize()
+        busy += sum(e.self_device_time_total
+                    for e in profile.device_events(prof)) / 1e3
+    busy /= len(window)
+    print(f"[16] phase 7's window tuned: trees and tables bitwise equal to "
+          f"the untuned run; {ms_t:.3f} ms a step (untuned {ms_u:.3f}; "
+          f"phase 7 {phase7[0]:.3f}), device busy {busy:.3f} ms a step "
+          f"(phase 7 {phase7[1]:.3f}; {smi})", flush=True)
+
+    # op_costs of one step beside its device time, then a trace of a step
+    Xb, yb = batches[2 * WARM_BATCHES]
+    out = []      # the step consumes the state: keep the one it returns
+    costs = profile.op_costs(lambda: out.append(fr.update(cfg, state, Xb, yb,
+                                                          device=dev)))
+    state = out[0][0]
+    print(f"[16] op_costs of one forest.update step: {costs['flops']:.4g} "
+          f"flops, {costs['bytes']:.4g} bytes (the kernels' bytes at the "
+          f"leaves, nodes and sizes this step's data touched), floor of "
+          f"that work {costs['optimal_seconds'] * 1e3:.4f} ms, peak memory "
+          f"{costs['peak_memory'] / 2**20:.1f} MiB; measured device time "
+          f"{busy:.3f} ms a step ({smi})", flush=True)
+    _build.reset_launches()
+    Xb, yb = batches[2 * WARM_BATCHES + 1]
+    logdir = os.path.join(tmp, "trace")
+    with profile.trace(logdir):
+        state, _ = fr.update(cfg, state, Xb, yb, device=dev)
+    ran = [k for k in STEP_KERNELS if _build.LAUNCHES[k]]
+    files = glob.glob(os.path.join(logdir, "trace_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} files in {logdir}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    for wrapper in ran:
+        kernel = STEP_KERNELS[wrapper]
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"trace: {kernel} launched but not traced")
+    print(f"[16] trace of one step ({os.path.getsize(files[0])} bytes, "
+          f"{len(names)} kernel names): found {', '.join(ran)}", flush=True)
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TORCH_TUNING_CACHE=os.path.join(tmp, "smoke.json"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.perf.tune",
+                           "--smoke"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"tune --smoke exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    print(f"[16] python -m repro_torch.perf.tune --smoke: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    kops.set_tuning({})
+
+
+def phase16(seed, phase7, smi):
+    """Phase 16 on its own: the forest's stream from ``seed``, then
+    :func:`_tuning_phase` (``phase7``: phase 7's ms a step and device
+    busy, for comparison)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    _tuning_phase(forest_config(), stream_batches(seed, dev), seed, dev, smi,
+                  phase7)
+
+
+def _run_phase16(seed, phase7, smi):
+    """Phase 16 in a fresh process: once phase 12's engine threads have
+    run CUDA work, ``torch.profiler`` records no device activity in this
+    process (PERF.md §7), and phase 16 times and traces with it.  The
+    kernels are built already (``build/kernels``)."""
+    import torch
+    torch.cuda.empty_cache()
+    code = ("import chip_smoke as cs; "
+            f"cs.phase16({seed!r}, {tuple(phase7)!r}, {smi!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2110,6 +2275,7 @@ def main(argv=None) -> int:
     from repro_torch.core import serve as sv
     from repro_torch.data import synth
     from repro_torch.kernels import _build, qo_update_leaves
+    from repro_torch.perf import profile
     from repro_torch.kernels import ops as kops
 
     dev = torch.device("cuda", 0)
@@ -2183,10 +2349,8 @@ def main(argv=None) -> int:
               for k in ("mean", "m2"))
     err = max(err, _close(tsx_k, tsx_p, "qo_update_leaves sum_x"))
     touched = int((torch.bincount(gl, minlength=T * M) > 0).sum())
-    tab_bytes = touched * F * (C * 4 * 4 * 2 + 2 * 4)
-    nbytes = Xk.numel() * 4 + B * 4 + T * B * 8 + tab_bytes
-    flops = T * B * F * 16 + touched * F * C * 14
-    bound, by = _bound(nbytes, flops)
+    bound, by = profile.bound(*qo_update_leaves.cost(T * M, T * B, B, F, C,
+                                                     touched=touched))
     scratch_k, scratch_p = tables(), tables()
     rows.append(dict(
         name="qo_update_leaves", route="cuda",
@@ -2277,7 +2441,7 @@ def main(argv=None) -> int:
           f"{serve_ms:.3f} ms = {SERVE_ROWS / serve_ms * 1e3:.0f} rows/s",
           flush=True)
 
-    _profile(cfg, batches, args.seed, dev)
+    phase7 = _profile(cfg, batches, args.seed, dev)
 
     # ---- 8. the sketch forest ---------------------------------------------
     sketch_launches = _sketch_forest(scfg, sbatches, args.seed, dev)
@@ -2313,6 +2477,9 @@ def main(argv=None) -> int:
     _phase15(batches, args.seed, dev)
     print(f"[15] phases 14 and 15 took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # ---- 16. the perf layer: tuner, cache, op costs, trace ---------------
+    _run_phase16(args.seed, phase7, smi)
 
     # launches from the phase whose path runs each kernel
     for row in rows:

@@ -146,14 +146,16 @@ def compact_planes(n, mean, m2, sum_x, k_out: int):
         [a.contiguous() for a in (n, mean, m2, sum_x)], k_out)
 
 
-def merge_planes(a_n, a_mean, a_m2, a_sum_x, b_n, b_mean, b_m2, b_sum_x):
+def merge_planes(a_n, a_mean, a_m2, a_sum_x, b_n, b_mean, b_m2, b_sum_x,
+                 **knobs):
     """Merge two same-shape (..., K) sketches: the 2K centroids compacted
     back to K (on the card read from both sketches in place, with no
-    concatenation).  The empty sketch (all zeros) is an identity."""
+    concatenation).  The empty sketch (all zeros) is an identity.
+    ``knobs``: the compaction's launch shape (``warps``, ``gen_warps``)."""
     k = a_n.shape[-1]
     c = lambda *ts: [t.contiguous() for t in ts]
     return sketch_compact.compact(c(a_n, a_mean, a_m2, a_sum_x), k,
-                                  c(b_n, b_mean, b_m2, b_sum_x))
+                                  c(b_n, b_mean, b_m2, b_sum_x), **knobs)
 
 
 def from_batch_planes(leaf, X, y, w, n_tables: int, k: int):

@@ -84,49 +84,70 @@ __global__ void qo_merge_scalar_kernel(
          on[i], om[i], oq[i], os[i]);
 }
 
-static unsigned grid_for(long long work, int threads) {
+namespace {
+
+// A grid-stride grid: at most the blocks of THREADS that the SMs hold at
+// once (2,048 threads an SM: 8 blocks of 256).
+template <int THREADS>
+unsigned grid_for(long long work) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long cap = (long long)sms * 8;     // 8 blocks of 256 an SM
-  long long blocks = (work + threads - 1) / threads;
+  const long long cap = (long long)sms * (2048 / THREADS);
+  long long blocks = (work + THREADS - 1) / THREADS;
   if (blocks > cap) blocks = cap;
   return (unsigned)(blocks < 1 ? 1 : blocks);
 }
 
-// Inputs: a's n, mean, m2, sum_x, then b's; outputs: n, mean, m2, sum_x;
-// every plane holds n floats.
-extern "C" int qo_merge_launch(const void* na, const void* ma, const void* qa,
-                               const void* sa, const void* nb, const void* mb,
-                               const void* qb, const void* sb, void* on,
-                               void* om, void* oq, void* os, long long n,
-                               void* stream) {
-  if (n == 0) return 0;
-  const void* ptrs[12] = {na, ma, qa, sa, nb, mb, qb, sb, on, om, oq, os};
+template <int THREADS>
+int launch(const void* const* p, long long n, cudaStream_t st) {
   bool aligned = true;
   for (int i = 0; i < 12; ++i)
-    aligned = aligned && ((uintptr_t)ptrs[i] % 16 == 0);
-  const int threads = 256;
-  cudaStream_t st = (cudaStream_t)stream;
+    aligned = aligned && ((uintptr_t)p[i] % 16 == 0);
   long long done = 0;
   if (aligned && n >= 4) {
     const long long n4 = n / 4;
-    qo_merge_vec_kernel<<<grid_for(n4, threads), threads, 0, st>>>(
-        (const float4*)na, (const float4*)ma, (const float4*)qa,
-        (const float4*)sa, (const float4*)nb, (const float4*)mb,
-        (const float4*)qb, (const float4*)sb, (float4*)on, (float4*)om,
-        (float4*)oq, (float4*)os, n4);
+    qo_merge_vec_kernel<<<grid_for<THREADS>(n4), THREADS, 0, st>>>(
+        (const float4*)p[0], (const float4*)p[1], (const float4*)p[2],
+        (const float4*)p[3], (const float4*)p[4], (const float4*)p[5],
+        (const float4*)p[6], (const float4*)p[7], (float4*)p[8],
+        (float4*)p[9], (float4*)p[10], (float4*)p[11], n4);
     done = n4 * 4;
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
   if (done < n) {
-    qo_merge_scalar_kernel<<<grid_for(n - done, threads), threads, 0, st>>>(
-        (const float*)na, (const float*)ma, (const float*)qa, (const float*)sa,
-        (const float*)nb, (const float*)mb, (const float*)qb, (const float*)sb,
-        (float*)on, (float*)om, (float*)oq, (float*)os, done, n);
+    qo_merge_scalar_kernel<<<grid_for<THREADS>(n - done), THREADS, 0, st>>>(
+        (const float*)p[0], (const float*)p[1], (const float*)p[2],
+        (const float*)p[3], (const float*)p[4], (const float*)p[5],
+        (const float*)p[6], (const float*)p[7], (float*)p[8], (float*)p[9],
+        (float*)p[10], (float*)p[11], done, n);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Inputs: a's n, mean, m2, sum_x, then b's; outputs: n, mean, m2, sum_x;
+// every plane holds n floats.  threads: threads a block, 128, 256, 512 or
+// 1024 (anything else is refused); each element is merged by one thread
+// on its own, so every choice gives the same bits.
+extern "C" int qo_merge_launch(const void* na, const void* ma, const void* qa,
+                               const void* sa, const void* nb, const void* mb,
+                               const void* qb, const void* sb, void* on,
+                               void* om, void* oq, void* os, long long n,
+                               int threads, void* stream) {
+  if (threads != 128 && threads != 256 && threads != 512 && threads != 1024)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const void* ptrs[12] = {na, ma, qa, sa, nb, mb, qb, sb, on, om, oq, os};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (threads) {
+    case 128: return launch<128>(ptrs, n, st);
+    case 512: return launch<512>(ptrs, n, st);
+    case 1024: return launch<1024>(ptrs, n, st);
+    default: return launch<256>(ptrs, n, st);
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

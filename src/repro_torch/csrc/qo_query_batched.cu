@@ -59,10 +59,6 @@
 
 namespace {
 
-// warps a block (fewer when C is large); 4 rather than 8 evens out the
-// last wave of blocks over the SMs
-constexpr int MAX_WARPS = 4;
-
 // The VR of the boundary after lane's bin c (prefix p) where it is valid,
 // and the lane's running best with its candidate threshold.
 __device__ __forceinline__ void score_bin(Stat p, const Total& T, bool valid,
@@ -82,8 +78,13 @@ __device__ __forceinline__ void score_bin(Stat p, const Total& T, bool valid,
 // NCH > 0: the table's NCH chunks (C <= NCH * W) held in registers, all
 // loads in flight at once and the chunks' scans independent; NCH == 0:
 // any C, two passes over the chunks with each chunk's entry aggregate in
-// shared memory.
-template <int W, int NCH>
+// shared memory.  MAX_WARPS: the most warps a block (the launch's
+// schedule: 1, 2, 4 or 8, one instantiation each,
+// kernels/qo_query_batched.py::WARPS_CHOICES; 4 unless the caller picks
+// another, since 4 rather than 8 evened out the last wave of blocks over
+// the SMs at the forest's shapes); fewer when C is large.  A warp owns its
+// table(s) alone, so every choice gives the same bits.
+template <int W, int NCH, int MAX_WARPS>
 __global__ void __launch_bounds__(MAX_WARPS * 32) qo_query_batched_kernel(
     const int* __restrict__ rows, const float* __restrict__ tab_n,
     const float* __restrict__ tab_mean, const float* __restrict__ tab_m2,
@@ -208,16 +209,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) qo_query_batched_kernel(
   }
 }
 
-// C up to 65,536 (kernels/qo_query_batched.py::MAX_BINS): a one-warp
-// block's chunk entries then stay within 48 KB of shared memory.
-extern "C" int qo_query_batched_launch(const void* rows, const void* tab_n,
-                                       const void* tab_mean,
-                                       const void* tab_m2, const void* tab_sx,
-                                       void* merit, void* thr, int K, int F,
-                                       int C, void* stream) {
+namespace {
+
+template <int MAX_WARPS>
+int launch(const int* r, const float* n, const float* mu, const float* m2,
+           const float* sx, float* me, float* th, int K, int F, int C,
+           cudaStream_t st) {
   const long long tables = (long long)K * F;
-  if (tables == 0) return 0;
-  if (tables > INT_MAX) return (int)cudaErrorInvalidValue;
   const int W = C <= 16 ? 16 : 32;
   const int nch = (C + W - 1) / W;
   const int per_warp = 32 / W;
@@ -228,28 +226,52 @@ extern "C" int qo_query_batched_launch(const void* rows, const void* tab_n,
   const long long per_block = (long long)warps * per_warp;
   const unsigned blocks = (unsigned)((tables + per_block - 1) / per_block);
   const size_t shmem = (size_t)per_block * entry;
-  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(blocks), block(warps * 32);
+  if (W == 16)
+    qo_query_batched_kernel<16, 1, MAX_WARPS><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch == 1)
+    qo_query_batched_kernel<32, 1, MAX_WARPS><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch == 2)
+    qo_query_batched_kernel<32, 2, MAX_WARPS><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else if (nch <= 4)
+    qo_query_batched_kernel<32, 4, MAX_WARPS><<<grid, block, 0, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  else
+    qo_query_batched_kernel<32, 0, MAX_WARPS><<<grid, block, shmem, st>>>(
+        r, n, mu, m2, sx, me, th, K, F, C, nch);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C up to 65,536 (kernels/qo_query_batched.py::MAX_BINS): a one-warp
+// block's chunk entries then stay within 48 KB of shared memory.
+// max_warps: 1, 2, 4 or 8 (anything else is refused); the 48 KB cap on a
+// block's chunk entries still halves it where C is large.
+extern "C" int qo_query_batched_launch(const void* rows, const void* tab_n,
+                                       const void* tab_mean,
+                                       const void* tab_m2, const void* tab_sx,
+                                       void* merit, void* thr, int K, int F,
+                                       int C, int max_warps, void* stream) {
+  if (max_warps != 1 && max_warps != 2 && max_warps != 4 && max_warps != 8)
+    return (int)cudaErrorInvalidValue;
+  const long long tables = (long long)K * F;
+  if (tables == 0) return 0;
+  if (tables > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const auto* r = (const int*)rows;
   const auto *n = (const float*)tab_n, *mu = (const float*)tab_mean,
              *m2 = (const float*)tab_m2, *sx = (const float*)tab_sx;
   auto *me = (float*)merit, *th = (float*)thr;
-  const dim3 grid(blocks), block(warps * 32);
-  if (W == 16)
-    qo_query_batched_kernel<16, 1><<<grid, block, 0, st>>>(
-        r, n, mu, m2, sx, me, th, K, F, C, nch);
-  else if (nch == 1)
-    qo_query_batched_kernel<32, 1><<<grid, block, 0, st>>>(
-        r, n, mu, m2, sx, me, th, K, F, C, nch);
-  else if (nch == 2)
-    qo_query_batched_kernel<32, 2><<<grid, block, 0, st>>>(
-        r, n, mu, m2, sx, me, th, K, F, C, nch);
-  else if (nch <= 4)
-    qo_query_batched_kernel<32, 4><<<grid, block, 0, st>>>(
-        r, n, mu, m2, sx, me, th, K, F, C, nch);
-  else
-    qo_query_batched_kernel<32, 0><<<grid, block, shmem, st>>>(
-        r, n, mu, m2, sx, me, th, K, F, C, nch);
-  return (int)cudaGetLastError();
+  switch (max_warps) {
+    case 1: return launch<1>(r, n, mu, m2, sx, me, th, K, F, C, st);
+    case 2: return launch<2>(r, n, mu, m2, sx, me, th, K, F, C, st);
+    case 8: return launch<8>(r, n, mu, m2, sx, me, th, K, F, C, st);
+    default: return launch<4>(r, n, mu, m2, sx, me, th, K, F, C, st);
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -9,7 +9,10 @@
 // f32, child (T, M, 2) i32 with -1 at leaves, is_leaf (T, M) bool -- so a
 // route is one launch and no other device op.
 //
-// One block owns one tree and a tile of ROWS rows, one thread a row:
+// One block owns one tree and a tile of ROWS rows, one thread a row (ROWS
+// is the launch's schedule: 128, 256 or 512, one template instantiation
+// each, kernels/qo_route.py::ROWS_CHOICES; 256 unless the caller picks
+// another; every choice gives the same ids):
 //
 //   1. the block packs its tree's M nodes into shared memory as 16-byte
 //      records {feature, threshold bits, left, right}, a leaf self-looped
@@ -39,8 +42,6 @@
 
 namespace {
 
-constexpr int ROWS = 256;  // rows a block, one a thread
-
 // The 16-byte record of node j of one tree (arrays offset to the tree).
 __device__ __forceinline__ int4 node_record(const int* __restrict__ feature,
                                             const float* __restrict__ thr,
@@ -56,7 +57,7 @@ __device__ __forceinline__ int4 node_record(const int* __restrict__ feature,
 
 }  // namespace
 
-template <bool NODES_SMEM>
+template <int ROWS, bool NODES_SMEM>
 __global__ void __launch_bounds__(ROWS) qo_route_kernel(
     const int* __restrict__ feature, const float* __restrict__ threshold,
     const int* __restrict__ child, const bool* __restrict__ is_leaf,
@@ -95,11 +96,11 @@ __global__ void __launch_bounds__(ROWS) qo_route_kernel(
 
 namespace {
 
-template <bool NODES_SMEM>
+template <int ROWS, bool NODES_SMEM>
 int launch(const int* feature, const float* threshold, const int* child,
            const bool* is_leaf, const float* x, int* out, int T, int M, int B,
            int F, int plies, size_t shmem, cudaStream_t st) {
-  auto kernel = qo_route_kernel<NODES_SMEM>;
+  auto kernel = qo_route_kernel<ROWS, NODES_SMEM>;
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -111,12 +112,27 @@ int launch(const int* feature, const float* threshold, const int* child,
   return (int)cudaGetLastError();
 }
 
+template <int ROWS>
+int launch_rows(const int* feature, const float* threshold, const int* child,
+                const bool* is_leaf, const float* x, int* out, int T, int M,
+                int B, int F, int plies, size_t node_bytes, int optin,
+                cudaStream_t st) {
+  if (node_bytes <= (size_t)optin)
+    return launch<ROWS, true>(feature, threshold, child, is_leaf, x, out, T,
+                              M, B, F, plies, node_bytes, st);
+  return launch<ROWS, false>(feature, threshold, child, is_leaf, x, out, T,
+                             M, B, F, plies, 0, st);
+}
+
 }  // namespace
 
+// rows: rows a block, 128, 256 or 512 (anything else is refused).
 extern "C" int qo_route_launch(const void* feature, const void* threshold,
                                const void* child, const void* is_leaf,
                                const void* x, void* out, int T, int M, int B,
-                               int F, int plies, void* stream) {
+                               int F, int plies, int rows, void* stream) {
+  if (rows != 128 && rows != 256 && rows != 512)
+    return (int)cudaErrorInvalidValue;
   if (T == 0 || B == 0) return 0;
   if (T > 65535) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
@@ -133,10 +149,17 @@ extern "C" int qo_route_launch(const void* feature, const void* threshold,
   const auto* xx = (const float*)x;
   auto* o = (int*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (node_bytes <= (size_t)optin)
-    return launch<true>(f, th, c, l, xx, o, T, M, B, F, plies, node_bytes,
-                        st);
-  return launch<false>(f, th, c, l, xx, o, T, M, B, F, plies, 0, st);
+  switch (rows) {
+    case 128:
+      return launch_rows<128>(f, th, c, l, xx, o, T, M, B, F, plies,
+                              node_bytes, optin, st);
+    case 512:
+      return launch_rows<512>(f, th, c, l, xx, o, T, M, B, F, plies,
+                              node_bytes, optin, st);
+    default:
+      return launch_rows<256>(f, th, c, l, xx, o, T, M, B, F, plies,
+                              node_bytes, optin, st);
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

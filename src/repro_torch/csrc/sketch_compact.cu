@@ -74,9 +74,6 @@
 
 namespace {
 
-constexpr int WARPS = 8;       // rows (warps) a block, fast kernel
-constexpr int GEN_WARPS = 4;   // rows (warps) a block, general kernel
-
 // p + 0.0 as an ordered uint32: +0.0 and -0.0 coincide, every NaN sorts
 // above +inf, and unsigned order is float order.
 __device__ __forceinline__ uint32_t ordered(float p) {
@@ -201,7 +198,11 @@ __device__ __forceinline__ void run_sums(float (&v)[ROW_E],
   }
 }
 
-template <bool VEC>
+// WARPS: warps a block (the launch's schedule: 4, 8 or 16, one
+// instantiation each, kernels/sketch_compact.py::WARPS_CHOICES; 8 unless
+// the caller picks another).  A row lives in one warp, so every choice
+// gives the same bits.
+template <int WARPS, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32) sketch_compact_rows_kernel(
     Planes a, Planes b, float* __restrict__ out_n,
     float* __restrict__ out_mean, float* __restrict__ out_m2,
@@ -390,6 +391,10 @@ __global__ void __launch_bounds__(WARPS * 32) sketch_compact_rows_kernel(
 // ---------------------------------------------------------------------------
 // J > 32: one warp a row, the keys sorted in shared memory.
 // ---------------------------------------------------------------------------
+// GEN_WARPS: rows (warps) a block (2, 4 or 8,
+// kernels/sketch_compact.py::GEN_WARPS_CHOICES; 4 unless the caller picks
+// another).
+template <int GEN_WARPS>
 __global__ void __launch_bounds__(GEN_WARPS * 32) sketch_compact_smem_kernel(
     Planes a, Planes b, float* __restrict__ out_n,
     float* __restrict__ out_mean, float* __restrict__ out_m2,
@@ -507,48 +512,98 @@ __global__ void __launch_bounds__(GEN_WARPS * 32) sketch_compact_smem_kernel(
   }
 }
 
+namespace {
+
+// Dynamic shared memory past the default 48 KB needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t shmem) {
+  if (shmem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)shmem);
+}
+
+template <int WARPS>
+int launch_rows(const Planes& a, const Planes& b, float* on, float* om,
+                float* oq, float* os, long long R, int Ja, int Jb, int K,
+                bool vec, cudaStream_t st) {
+  constexpr int rows_a_block = WARPS * ROW_E;
+  const unsigned blocks = (unsigned)((R + rows_a_block - 1) / rows_a_block);
+  const size_t shmem =
+      (size_t)rows_a_block * (ROW_PAY + 4 * K) * sizeof(float);
+  auto kernel = vec ? sketch_compact_rows_kernel<WARPS, true>
+                    : sketch_compact_rows_kernel<WARPS, false>;
+  const cudaError_t e = allow_smem(kernel, shmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, WARPS * 32, shmem, st>>>(a, b, on, om, oq, os, R, Ja, Jb,
+                                            K);
+  return (int)cudaGetLastError();
+}
+
+template <int GEN_WARPS>
+int launch_smem(const Planes& a, const Planes& b, float* on, float* om,
+                float* oq, float* os, long long R, int Ja, int Jb, int K,
+                cudaStream_t st) {
+  const int J = Ja + Jb;
+  int Jp = 32;
+  while (Jp < J) Jp <<= 1;
+  const unsigned blocks = (unsigned)((R + GEN_WARPS - 1) / GEN_WARPS);
+  const size_t shmem = GEN_WARPS * smem_floats(Jp, J, K) * sizeof(float);
+  auto kernel = sketch_compact_smem_kernel<GEN_WARPS>;
+  const cudaError_t e = allow_smem(kernel, shmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, GEN_WARPS * 32, shmem, st>>>(a, b, on, om, oq, os, R, Ja,
+                                                Jb, Jp, K);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // Compact R rows of Ja + Jb centroids (planes of set a: (R, Ja); of set b:
 // (R, Jb), Jb may be 0 and its pointers null) into (R, K) planes.
-// 1 <= Ja + Jb <= 512, 1 <= K <= 256 (the wrapper checks).
+// 1 <= Ja + Jb <= 512, 1 <= K <= 256 (the wrapper checks).  warps: the
+// fast kernel's warps a block, 4, 8 or 16; gen_warps: the general
+// kernel's, 2, 4 or 8 (anything else is refused).  At 16 warps and K > 16
+// the fast kernel's block takes more than 48 KB of shared memory (64 KB at
+// K = 32), as does the general kernel's at 8 warps and large J and K:
+// both opt in.
 extern "C" int sketch_compact_launch(
     const void* a_n, const void* a_mean, const void* a_m2, const void* a_sx,
     const void* b_n, const void* b_mean, const void* b_m2, const void* b_sx,
     void* out_n, void* out_mean, void* out_m2, void* out_sx, long long R,
-    int Ja, int Jb, int K, void* stream) {
+    int Ja, int Jb, int K, int warps, int gen_warps, void* stream) {
+  if ((warps != 4 && warps != 8 && warps != 16) ||
+      (gen_warps != 2 && gen_warps != 4 && gen_warps != 8))
+    return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const Planes a{(const float*)a_n, (const float*)a_mean, (const float*)a_m2,
                  (const float*)a_sx};
   const Planes b{(const float*)b_n, (const float*)b_mean, (const float*)b_m2,
                  (const float*)b_sx};
-  const int J = Ja + Jb;
-  if (J <= 32 && K <= 32) {
-    constexpr int rows_a_block = WARPS * ROW_E;
-    const unsigned blocks =
-        (unsigned)((R + rows_a_block - 1) / rows_a_block);
-    const size_t shmem =
-        (size_t)rows_a_block * (ROW_PAY + 4 * K) * sizeof(float);
+  auto *on = (float*)out_n, *om = (float*)out_mean, *oq = (float*)out_m2,
+       *os = (float*)out_sx;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (Ja + Jb <= 32 && K <= 32) {
     const auto aligned = [](const void* p) {
       return ((uintptr_t)p & 15u) == 0;
     };
     bool vec = Ja % 4 == 0 && Jb % 4 == 0;
     for (const void* p : {a_n, a_mean, a_m2, a_sx, b_n, b_mean, b_m2, b_sx})
       vec = vec && aligned(p);  // an absent b (null) counts as aligned
-    auto kernel = vec ? sketch_compact_rows_kernel<true>
-                      : sketch_compact_rows_kernel<false>;
-    kernel<<<blocks, WARPS * 32, shmem, (cudaStream_t)stream>>>(
-        a, b, (float*)out_n, (float*)out_mean, (float*)out_m2,
-        (float*)out_sx, R, Ja, Jb, K);
-  } else {
-    int Jp = 32;
-    while (Jp < J) Jp <<= 1;
-    const unsigned blocks = (unsigned)((R + GEN_WARPS - 1) / GEN_WARPS);
-    const size_t shmem = GEN_WARPS * smem_floats(Jp, J, K) * sizeof(float);
-    sketch_compact_smem_kernel<<<blocks, GEN_WARPS * 32, shmem,
-                                 (cudaStream_t)stream>>>(
-        a, b, (float*)out_n, (float*)out_mean, (float*)out_m2,
-        (float*)out_sx, R, Ja, Jb, Jp, K);
+    switch (warps) {
+      case 4: return launch_rows<4>(a, b, on, om, oq, os, R, Ja, Jb, K, vec,
+                                    st);
+      case 16: return launch_rows<16>(a, b, on, om, oq, os, R, Ja, Jb, K,
+                                      vec, st);
+      default: return launch_rows<8>(a, b, on, om, oq, os, R, Ja, Jb, K, vec,
+                                     st);
+    }
   }
-  return (int)cudaGetLastError();
+  switch (gen_warps) {
+    case 2: return launch_smem<2>(a, b, on, om, oq, os, R, Ja, Jb, K, st);
+    case 8: return launch_smem<8>(a, b, on, om, oq, os, R, Ja, Jb, K, st);
+    default: return launch_smem<4>(a, b, on, om, oq, os, R, Ja, Jb, K, st);
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

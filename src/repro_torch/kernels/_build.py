@@ -20,7 +20,14 @@ together (a serving engine's trainer and server) build it once.
 ``LAUNCHES`` holds one integer per kernel entry point, under the source's
 name where a source has one entry point and under ``ebst_insert`` and
 ``ebst_query`` for the two of ``csrc/ebst.cu``; each wrapper adds one
-where it launches its kernel and nowhere else.
+through :func:`launched` where it launches its kernel and nowhere else.
+:func:`launched` also hands every sink in ``COST_SINKS`` (the op-cost
+counter of :mod:`repro_torch.perf.opcost`) the launch's cost function.
+
+A kernel's launch shape (rows, warps or threads a block) is a schedule
+knob: each allowed value is its own template instantiation, the wrapper
+takes it as a keyword and :func:`check_knob` refuses a value that was not
+compiled.
 """
 from __future__ import annotations
 
@@ -32,8 +39,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build", "library",
-           "check", "BuildError"]
+__all__ = ["SOURCES", "LAUNCHES", "COST_SINKS", "reset_launches",
+           "launched", "check_knob", "build", "library", "check",
+           "BuildError"]
 
 SOURCES = ("qo_route", "qo_update_leaves", "qo_query_batched",
            "sketch_compact", "qo_update", "qo_query", "qo_merge", "ebst")
@@ -44,6 +52,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {name: 0 for name in SOURCES[:-1] + ("ebst_insert",
                                                  "ebst_query")}
+#: Callables ``sink(name, cost)`` told of every launch.
+COST_SINKS: list = []
 _LOCK = threading.Lock()
 _LIBRARIES: dict = {}
 
@@ -55,6 +65,25 @@ class BuildError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launched(name: str, cost) -> None:
+    """Count one launch of ``name`` and hand ``cost`` to every sink.
+    ``cost()`` gives the launch's ``(bytes, flops)``; only a sink calls
+    it, so where it reads the launch's data on the card (the leaves a
+    batch reached, the nodes a forest allocated) that host read happens
+    only while a sink listens."""
+    LAUNCHES[name] += 1
+    for sink in COST_SINKS:
+        sink(name, cost)
+
+
+def check_knob(kernel: str, knob: str, value, choices) -> int:
+    """``value`` if the kernel was compiled for it, else ValueError."""
+    if value not in choices:
+        raise ValueError(f"{kernel}: {knob} = {value!r} is not compiled; "
+                         f"the kernel takes {tuple(choices)}")
+    return int(value)
 
 
 def _nvcc() -> str:

@@ -32,12 +32,30 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 
 __all__ = ["insert_plain", "insert_kernel", "insert", "query_plain",
-           "query_kernel", "query", "STACK_ENTRY_BYTES"]
+           "query_kernel", "query", "insert_cost", "query_cost",
+           "STACK_ENTRY_BYTES"]
 
 #: One query stack entry in the kernel: node (i32) and S (3 x f32).
 STACK_ENTRY_BYTES = 16
 
 _NIL = -1
+
+
+def insert_cost(N: int, nodes: int, visits=None):
+    """``(bytes, flops)`` of inserting N rows into a tree: the rows read
+    once, the node arrays of ``nodes`` nodes (24 B a node; the tree's
+    capacity, or its size after the insert) read and written once; 8
+    flops a node visited (``visits``: at least one a row, N, unless
+    given)."""
+    visits = N if visits is None else visits
+    return N * 8 + nodes * 24 * 2, visits * 8
+
+
+def query_cost(size: int):
+    """``(bytes, flops)`` of the in-order query of ``size`` nodes: each
+    node's 24 B read once and the 12-byte result written; about 40 flops
+    a node."""
+    return size * 24 + 12, size * 40
 
 
 def _get(le, i):
@@ -199,7 +217,7 @@ def insert_kernel(t, xs, ys) -> None:
         t["size"].data_ptr(), tot.data_ptr(), t["decimals"].data_ptr(),
         xs.data_ptr(), ys.data_ptr(), N, cap, stream)
     _build.check(rc, "ebst")
-    _build.LAUNCHES["ebst_insert"] += 1
+    _build.launched("ebst_insert", lambda: insert_cost(N, int(t["size"])))
     for i, k in enumerate(("n", "mean", "m2")):
         t["total"][k].copy_(tot[i])
 
@@ -221,7 +239,7 @@ def query_kernel(t):
         t["size"].data_ptr(), tot.data_ptr(), stack.data_ptr(),
         out.data_ptr(), stream)
     _build.check(rc, "ebst")
-    _build.LAUNCHES["ebst_query"] += 1
+    _build.launched("ebst_query", lambda: query_cost(int(t["size"])))
     return out[0], out[1], out[2] > 0
 
 

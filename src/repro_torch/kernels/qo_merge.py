@@ -15,6 +15,9 @@ Returns four new planes (out of place, as the reference's op).
 :func:`merge` launches ``csrc/qo_merge.cu`` on a CUDA tensor and runs
 :func:`merge_plain` on a CPU one; the kernel keeps the plain version's
 operation order and rounding, so the two are bitwise equal on the card.
+``threads`` (threads a block) is the launch's schedule knob:
+:data:`THREADS_CHOICES` are compiled, each element is merged on its own so
+every one gives the same bits, and the plain version never sees it.
 """
 from __future__ import annotations
 
@@ -26,7 +29,18 @@ import torch
 from repro_torch.core import stats
 from repro_torch.kernels import _build
 
-__all__ = ["merge_plain", "merge_kernel", "merge"]
+__all__ = ["merge_plain", "merge_kernel", "merge", "cost", "THREADS",
+           "THREADS_CHOICES"]
+
+#: Threads a block by default, and the values compiled.
+THREADS = 256
+THREADS_CHOICES = (128, 256, 512, 1024)
+
+
+def cost(E: int):
+    """``(bytes, flops)`` of merging two sets of four planes of E floats:
+    eight planes read and four written once, about 14 flops an element."""
+    return 12 * 4 * E, 14 * E
 
 _NAMES = ("n_a", "mean_a", "m2_a", "sum_x_a", "n_b", "mean_b", "m2_b",
           "sum_x_b")
@@ -42,15 +56,17 @@ def merge_plain(n_a, mean_a, m2_a, sum_x_a, n_b, mean_b, m2_b, sum_x_b):
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("qo_merge").qo_merge_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def merge_kernel(*planes):
+def merge_kernel(*planes, threads: int = THREADS):
     """Launch ``csrc/qo_merge.cu`` on the eight planes (a's n, mean, m2,
-    sum_x, then b's) -> four new planes."""
+    sum_x, then b's), ``threads`` threads a block -> four new planes."""
+    threads = _build.check_knob("qo_merge", "threads", threads,
+                                THREADS_CHOICES)
     if len(planes) != 8:
         raise ValueError(f"qo_merge: expected 8 planes, got {len(planes)}")
     dev, shape = planes[0].device, planes[0].shape
@@ -63,14 +79,18 @@ def merge_kernel(*planes):
            for _ in range(4)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(*(t.data_ptr() for t in planes),
-                     *(o.data_ptr() for o in out), planes[0].numel(), stream)
+                     *(o.data_ptr() for o in out), planes[0].numel(),
+                     threads, stream)
     _build.check(rc, "qo_merge")
-    _build.LAUNCHES["qo_merge"] += 1
+    E = planes[0].numel()
+    _build.launched("qo_merge", lambda: cost(E))
     return tuple(out)
 
 
-def merge(*planes):
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
+def merge(*planes, threads: int = THREADS):
+    """The plain version on a CPU tensor, else the kernel (or a raise).
+    ``threads`` is checked on both: the plain version never sees it."""
     if planes[0].device.type == "cpu":
+        _build.check_knob("qo_merge", "threads", threads, THREADS_CHOICES)
         return merge_plain(*planes)
-    return merge_kernel(*planes)
+    return merge_kernel(*planes, threads=threads)

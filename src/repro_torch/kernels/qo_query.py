@@ -34,7 +34,14 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 
 __all__ = ["prefix_merge", "boundaries", "scores_plain", "argmax_nan_first", "best_plain", "best_kernel",
-           "best", "SplitResult", "split", "MAX_BINS"]
+           "best", "SplitResult", "split", "cost", "MAX_BINS"]
+
+
+def cost(C: int):
+    """``(bytes, flops)`` of querying one C-bin table: the four planes
+    read once, the (C,) scores and candidates and the 3-float result
+    written; about 60 flops a bin (prefix and complement merges, VR)."""
+    return C * 16 + C * 8 + 12, C * 60
 
 #: Largest C the kernel takes: its per-chunk records (52 bytes a chunk of
 #: 32 bins, 26 KB here) stay within a block's 48 KB of shared memory.
@@ -139,7 +146,7 @@ def best_kernel(n, mean, m2, sum_x):
                      sum_x.data_ptr(), score.data_ptr(), cand.data_ptr(),
                      result.data_ptr(), C, stream)
     _build.check(rc, "qo_query")
-    _build.LAUNCHES["qo_query"] += 1
+    _build.launched("qo_query", lambda: cost(C))
     return score, cand, result
 
 

@@ -14,7 +14,10 @@ table: the TPU kernel's Kogge-Stone prefix Chan merge over chunks of 32
 bins, or 16 for C <= 16) on a CUDA tensor and runs
 :func:`best_splits_plain` (the reference's ``ops._forest_query_jnp``:
 centred prefix sums) on a CPU one.  The two differ by f32 rounding only
-(ROADMAP B3, C6).
+(ROADMAP B3, C6).  ``warps`` (the most warps a block) is the launch's
+schedule knob: :data:`WARPS_CHOICES` are compiled, a warp owns its tables
+alone so every one gives the same bits, and the plain version never sees
+it.
 """
 from __future__ import annotations
 
@@ -26,11 +29,22 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["query_scores_plain", "best_splits_plain", "best_splits_kernel",
-           "best_splits", "MAX_BINS"]
+           "best_splits", "cost", "MAX_BINS", "WARPS", "WARPS_CHOICES"]
 
 #: Largest C the kernel takes: a table's chunk entries (5 floats per 32
 #: bins) in one block's 48 KB of shared memory.
 MAX_BINS = 65536
+#: The most warps a block by default (fewer where C is large: a block's
+#: chunk entries stay within 48 KB), and the values compiled.
+WARPS = 4
+WARPS_CHOICES = (1, 2, 4, 8)
+
+
+def cost(K: int, F: int, C: int):
+    """``(bytes, flops)`` of a query of K table rows: the four planes of
+    the K*F tables read once, the row ids, the (K, F) merits and
+    thresholds written; about 30 flops a bin."""
+    return K * F * C * 16 + K * 4 + K * F * 8, K * F * C * 30
 
 
 def query_scores_plain(n, mean, m2, sum_x):
@@ -94,15 +108,17 @@ def best_splits_plain(tab_y, tab_sum_x, rows):
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("qo_query_batched").qo_query_batched_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def best_splits_kernel(tab_y, tab_sum_x, rows):
-    """Launch ``csrc/qo_query_batched.cu`` over the K table rows ``rows``.
-    K = 0 launches nothing."""
+def best_splits_kernel(tab_y, tab_sum_x, rows, warps: int = WARPS):
+    """Launch ``csrc/qo_query_batched.cu`` over the K table rows ``rows``,
+    at most ``warps`` warps a block.  K = 0 launches nothing."""
+    warps = _build.check_knob("qo_query_batched", "warps", warps,
+                              WARPS_CHOICES)
     N, F, C = tab_sum_x.shape
     dev = tab_sum_x.device
     for name, t in (("n", tab_y["n"]), ("mean", tab_y["mean"]),
@@ -126,14 +142,16 @@ def best_splits_kernel(tab_y, tab_sum_x, rows):
     rc = _launcher()(rows.data_ptr(), tab_y["n"].data_ptr(),
                      tab_y["mean"].data_ptr(), tab_y["m2"].data_ptr(),
                      tab_sum_x.data_ptr(), merit.data_ptr(), thr.data_ptr(),
-                     K, F, C, stream)
+                     K, F, C, warps, stream)
     _build.check(rc, "qo_query_batched")
-    _build.LAUNCHES["qo_query_batched"] += 1
+    _build.launched("qo_query_batched", lambda: cost(K, F, C))
     return merit, thr
 
 
-def best_splits(tab_y, tab_sum_x, rows):
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
+def best_splits(tab_y, tab_sum_x, rows, warps: int = WARPS):
+    """The plain version on a CPU tensor, else the kernel (or a raise).
+    ``warps`` is checked on both: the plain version never sees it."""
     if tab_sum_x.device.type == "cpu":
+        _build.check_knob("qo_query_batched", "warps", warps, WARPS_CHOICES)
         return best_splits_plain(tab_y, tab_sum_x, rows)
-    return best_splits_kernel(tab_y, tab_sum_x, rows)
+    return best_splits_kernel(tab_y, tab_sum_x, rows, warps)

@@ -12,7 +12,9 @@ deepest leaf's depth gives the same ids.  :func:`forest_route` launches
 ``csrc/qo_route.cu`` (one launch, nothing else on the device) on a CUDA
 tensor and runs :func:`route_plain` (the reference's gather sweep
 ``ops._forest_route_jnp`` over tables folded by :func:`fold_route_tables`)
-on a CPU one.
+on a CPU one.  ``rows`` (rows a block, one thread a row) is the launch's
+schedule knob: :data:`ROWS_CHOICES` are compiled, every one gives the
+same ids, and the plain version never sees it.
 """
 from __future__ import annotations
 
@@ -24,7 +26,23 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["fold_route_tables", "route_plain", "route_kernel",
-           "forest_route"]
+           "forest_route", "cost", "ROWS", "ROWS_CHOICES"]
+
+#: Rows a block by default, and the values ``csrc/qo_route.cu`` is
+#: compiled for (one template instantiation each).
+ROWS = 256
+ROWS_CHOICES = (128, 256, 512)
+
+
+def cost(T: int, M: int, B: int, F: int, plies: int, nodes=None,
+         walked=None):
+    """``(bytes, flops)`` a route must at least move and do: every
+    allocated node's 17 bytes (``nodes``; all T*M unless given), X and the
+    ids once; a compare and a select for each ply walked (``walked``; the
+    most, T*B*plies, unless given)."""
+    nodes = T * M if nodes is None else nodes
+    walked = T * B * plies if walked is None else walked
+    return nodes * 17 + B * F * 4 + T * B * 4, walked * 2
 
 
 def fold_route_tables(feature, threshold, child, is_leaf):
@@ -73,14 +91,17 @@ def route_plain(feature, threshold, child, is_leaf, X, plies: int):
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("qo_route").qo_route_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def route_kernel(feature, threshold, child, is_leaf, X, plies: int):
-    """Launch ``csrc/qo_route.cu``: (T, B) int32 local leaf ids."""
+def route_kernel(feature, threshold, child, is_leaf, X, plies: int,
+                 rows: int = ROWS):
+    """Launch ``csrc/qo_route.cu`` with ``rows`` rows a block: (T, B)
+    int32 local leaf ids."""
+    rows = _build.check_knob("qo_route", "rows", rows, ROWS_CHOICES)
     T, M = feature.shape
     B, F = X.shape
     for name, t, dt, shape in (("feature", feature, torch.int32, (T, M)),
@@ -99,14 +120,19 @@ def route_kernel(feature, threshold, child, is_leaf, X, plies: int):
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _launcher()(feature.data_ptr(), threshold.data_ptr(),
                      child.data_ptr(), is_leaf.data_ptr(), X.data_ptr(),
-                     out.data_ptr(), T, M, B, F, plies, stream)
+                     out.data_ptr(), T, M, B, F, plies, rows, stream)
     _build.check(rc, "qo_route")
-    _build.LAUNCHES["qo_route"] += 1
+    # the allocated nodes: every root, and two children a split
+    _build.launched("qo_route", lambda: cost(
+        T, M, B, F, plies, nodes=T + 2 * int((child[..., 0] >= 0).sum())))
     return out
 
 
-def forest_route(feature, threshold, child, is_leaf, X, plies: int):
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
+def forest_route(feature, threshold, child, is_leaf, X, plies: int,
+                 rows: int = ROWS):
+    """The plain version on a CPU tensor, else the kernel (or a raise).
+    ``rows`` is checked on both: the plain version never sees it."""
     if X.device.type == "cpu":
+        _build.check_knob("qo_route", "rows", rows, ROWS_CHOICES)
         return route_plain(feature, threshold, child, is_leaf, X, plies)
-    return route_kernel(feature, threshold, child, is_leaf, X, plies)
+    return route_kernel(feature, threshold, child, is_leaf, X, plies, rows)

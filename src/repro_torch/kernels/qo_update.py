@@ -17,6 +17,9 @@ reduction over the whole batch) on a CPU one.  The kernel cuts the rows
 into :func:`pieces` contiguous pieces, reduces each with its own two-pass
 M2 and Chan-merges them in piece order; the TPU kernel Chan-merges
 1024-row tiles one after another.  The three differ by f32 rounding only.
+The piece count and ``csrc/qo_update.cu``'s ``STEP`` and ``TILE_BINS``
+set how the rows flow through that sequential merge, so they stay
+compile-time (``repro_torch.perf.tune.KERNEL_STREAM_KNOBS``).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 from repro_torch.kernels.qo_update_leaves import bin_ids_plain
 
-__all__ = ["update_plain", "update_kernel", "update", "pieces", "MAX_BINS",
-           "PIECES", "MIN_PIECE_ROWS"]
+__all__ = ["update_plain", "update_kernel", "update", "pieces", "cost",
+           "MAX_BINS", "PIECES", "MIN_PIECE_ROWS"]
 
 #: Largest table the port takes; the kernel tiles the bins of a piece over
 #: a grid dimension, 1024 bins a block, so a block's tables stay in shared
@@ -40,6 +43,13 @@ MAX_BINS = 49152
 PIECES = 264
 #: Fewer pieces when each would hold fewer rows than this.
 MIN_PIECE_ROWS = 1024
+
+
+def cost(N: int, C: int):
+    """``(bytes, flops)`` of absorbing N rows into one C-bin table: x, y,
+    w read once (12 B a row), the four planes read and written once,
+    radius and origin; about 20 flops a row."""
+    return N * 12 + C * 16 * 2 + 8, N * 20
 
 
 def update_plain(n, mean, m2, sum_x, radius, origin, x, y, w):
@@ -112,7 +122,7 @@ def update_kernel(n, mean, m2, sum_x, radius, origin, x, y, w):
         origin.data_ptr(), n.data_ptr(), mean.data_ptr(), m2.data_ptr(),
         sum_x.data_ptr(), partial.data_ptr(), *(o.data_ptr() for o in out),
         N, per, G, C, stream), "qo_update")
-    _build.LAUNCHES["qo_update"] += 1
+    _build.launched("qo_update", lambda: cost(N, C))
     return tuple(out)
 
 

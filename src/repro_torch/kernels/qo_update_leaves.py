@@ -21,6 +21,9 @@ offsets)`` from :func:`sort_rows`, and the wrapper sorts only when it is
 not given them.  Each leaf's run is cut into pieces of at most
 :data:`PIECE_ROWS` rows; a leaf of several pieces merges its pieces'
 statistics in piece order (the TPU kernel merges 256-row tiles in order).
+``PIECE_ROWS`` sets where that sequential merge cuts a leaf's rows, so
+another value would reorder f32 sums: it stays compile-time
+(``repro_torch.perf.tune.KERNEL_STREAM_KNOBS``).
 """
 from __future__ import annotations
 
@@ -33,11 +36,22 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 
 __all__ = ["xla_int32", "bin_ids_plain", "absorb_plain", "absorb_kernel",
-           "absorb", "sort_rows", "PIECE_ROWS"]
+           "absorb", "sort_rows", "cost", "PIECE_ROWS"]
 
 #: Rows of a piece: ``PIECE_ROWS`` in ``csrc/qo_update_leaves.cu`` (the
 #: launcher checks that the two agree).
 PIECE_ROWS = 128
+
+
+def cost(N: int, R: int, B: int, F: int, C: int, touched=None):
+    """``(bytes, flops)`` of absorbing R folded rows (X of B rows) into
+    (N, F, C) tables: X, y, the leaf ids and weights read once, and the
+    tables of the ``touched`` leaves (every leaf a row reaches; at most
+    min(N, R) unless given) read and written once; about 16 flops a row
+    and feature and 14 a touched bin."""
+    touched = min(N, R) if touched is None else touched
+    nbytes = B * F * 4 + B * 4 + R * 8 + touched * F * (C * 32 + 8)
+    return nbytes, R * F * 16 + touched * F * C * 14
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
@@ -190,7 +204,8 @@ def absorb_kernel(tab_y, tab_sum_x, radius, origin, gl, X, y, w,
         tab_y["m2"].data_ptr(), tab_sum_x.data_ptr(), plan.data_ptr(),
         scratch.data_ptr(), N, n_rows, B, F, C, group, stream)
     _build.check(rc, "qo_update_leaves")
-    _build.LAUNCHES["qo_update_leaves"] += 1
+    _build.launched("qo_update_leaves", lambda: cost(
+        N, n_rows, B, F, C, touched=int((offsets.diff() > 0).sum())))
 
 
 def absorb(tab_y, tab_sum_x, radius, origin, gl, X, y, w,

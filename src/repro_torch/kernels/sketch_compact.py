@@ -25,7 +25,11 @@ concatenation).  On a CUDA tensor it launches ``csrc/sketch_compact.cu``
 (all three stages in one kernel) or raises; on a CPU tensor it runs
 :func:`compact_plain`: :func:`sort_planes` -> :func:`bucket_ids` ->
 :func:`bucket_reduce_plain` (the reference's ``sketch._bucket_reduce``,
-the TPU kernel's own function).
+the TPU kernel's own function).  ``warps`` and ``gen_warps`` (rows a
+block of the fast kernel, 4 a warp, and of the general kernel, one a warp)
+are the launch's schedule knobs: :data:`WARPS_CHOICES` and
+:data:`GEN_WARPS_CHOICES` are compiled, a row lives in one warp so every
+choice gives the same bits, and the plain version never sees them.
 """
 from __future__ import annotations
 
@@ -38,14 +42,41 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.qo_update_leaves import xla_int32
 
 __all__ = ["prototypes", "sort_planes", "bucket_ids", "bucket_reduce_plain",
-           "compact_plain", "compact_kernel", "compact", "MAX_BUCKETS",
-           "MAX_CENTROIDS"]
+           "compact_plain", "compact_kernel", "compact", "cost",
+           "fast_kernel", "MAX_BUCKETS", "MAX_CENTROIDS", "WARPS",
+           "WARPS_CHOICES", "GEN_WARPS", "GEN_WARPS_CHOICES"]
 
 #: Largest K: the kernel keeps a row's K bucket slots (4 floats each) in
 #: shared memory, several rows a block, within 48 KB.
 MAX_BUCKETS = 256
 #: Largest J the kernel sorts (a merge of two MAX_BUCKETS sketches).
 MAX_CENTROIDS = 2 * MAX_BUCKETS
+#: Warps a block of the fast kernel (J <= 32, K <= 32) and of the general
+#: one by default, and the values compiled.  At 16 warps and K > 16 the
+#: fast kernel's block takes over 48 KB of shared memory (it opts in).
+WARPS, WARPS_CHOICES = 8, (4, 8, 16)
+GEN_WARPS, GEN_WARPS_CHOICES = 4, (2, 4, 8)
+
+
+def cost(R: int, J: int, K: int):
+    """``(bytes, flops)`` of compacting R rows of J centroids into K: four
+    (R, J) planes read once, four (R, K) planes written once; about 20
+    flops a centroid (key, sort share, scans, reduce)."""
+    return R * J * 16 + R * K * 16, R * J * 20
+
+
+def fast_kernel(J: int, K: int) -> bool:
+    """Whether ``csrc/sketch_compact.cu`` compacts rows of J centroids into
+    K on its fast kernel (``warps``) rather than its general one
+    (``gen_warps``), as its launcher chooses."""
+    return J <= 32 and K <= 32
+
+
+def _check_knobs(warps, gen_warps):
+    return (_build.check_knob("sketch_compact", "warps", warps,
+                              WARPS_CHOICES),
+            _build.check_knob("sketch_compact", "gen_warps", gen_warps,
+                              GEN_WARPS_CHOICES))
 
 
 def prototypes(n, sum_x, empty: float = float("inf")):
@@ -109,9 +140,8 @@ def compact_plain(a, k_out: int, b=None):
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("sketch_compact").sketch_compact_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,10 +160,12 @@ def _check_set(planes, dev, lead, what):
     return J
 
 
-def compact_kernel(a, k_out: int, b=None):
+def compact_kernel(a, k_out: int, b=None, *, warps: int = WARPS,
+                   gen_warps: int = GEN_WARPS):
     """Launch ``csrc/sketch_compact.cu`` on the plane set ``a`` (and
     ``b``) -> four (..., k_out) planes.  One launch a call (none when
     there is no row)."""
+    warps, gen_warps = _check_knobs(warps, gen_warps)
     dev = a[0].device
     if a[0].dim() == 0:
         raise ValueError("sketch_compact: planes need a centroid axis")
@@ -154,14 +186,18 @@ def compact_kernel(a, k_out: int, b=None):
     bp = [t.data_ptr() for t in b] if b is not None else [None] * 4
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(*(t.data_ptr() for t in a), *bp,
-                     *(o.data_ptr() for o in out), R, Ja, Jb, k_out, stream)
+                     *(o.data_ptr() for o in out), R, Ja, Jb, k_out, warps,
+                     gen_warps, stream)
     _build.check(rc, "sketch_compact")
-    _build.LAUNCHES["sketch_compact"] += 1
+    _build.launched("sketch_compact", lambda: cost(R, Ja + Jb, k_out))
     return tuple(out)
 
 
-def compact(a, k_out: int, b=None):
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
+def compact(a, k_out: int, b=None, *, warps: int = WARPS,
+            gen_warps: int = GEN_WARPS):
+    """The plain version on a CPU tensor, else the kernel (or a raise).
+    The knobs are checked on both: the plain version never sees them."""
     if a[0].device.type == "cpu":
+        _check_knobs(warps, gen_warps)
         return compact_plain(a, k_out, b)
-    return compact_kernel(a, k_out, b)
+    return compact_kernel(a, k_out, b, warps=warps, gen_warps=gen_warps)

@@ -64,7 +64,8 @@ def test_every_port_module_is_scanned():
             "qo_route", "qo_update_leaves", "qo_query_batched", "_build",
             "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
             "sketch_compact", "qo_merge", "sharding", "compress", "ckpt",
-            "engine", "faults", "ebst", "multi", "monitor", "ref"} <= names
+            "engine", "faults", "ebst", "multi", "monitor", "ref", "tune",
+            "opcost", "profile"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py`` and
-``tests/test_torch_ebst.py`` on a GPU machine without JAX: the modules'
-JAX and reference imports (which only their CPU tests use) are stubbed
-with empty modules.
+"""Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py``,
+``tests/test_torch_ebst.py`` and ``tests/test_torch_perf.py`` on a GPU
+machine without JAX: the modules' JAX and reference imports (which only
+their CPU tests use) are stubbed with empty modules.
 
     python3 tools_torch/card_tests.py [pytest arguments]
 
@@ -42,4 +42,5 @@ sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
                       "-p", "no:randomly", *sys.argv[1:],
                       *(os.path.join(ROOT, "tests", f) + "::TestOnCard"
                         for f in ("test_torch_kernels.py",
-                                  "test_torch_ebst.py"))]))
+                                  "test_torch_ebst.py",
+                                  "test_torch_perf.py"))]))
