@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Six paths at full width, each fatal on failure:
+Seven paths at full width, each fatal on failure:
 
 * ``forest_t16_m1023_f16_c64``: an online-bagged forest of T=16 QO
   Hoeffding trees, M=1023 nodes, max depth 12, F=16 features, C=64 bins,
@@ -24,7 +24,10 @@ Six paths at full width, each fatal on failure:
 * ``aos_n1e5``: the paper's attribute observers (E-BST, TE-BST with 3
   decimals, QO at r = 0.01, sigma/2 and sigma/3; the reference's
   ``benchmarks/aos.py``) on the 18 §5.1 streams at n = 100,000 and on one
-  stream at n = 10^3..10^6.
+  stream at n = 10^3..10^6;
+* the LM scaffolding: qwen3-8b served unreduced and trained at full
+  width (4 layers) with the QO monitor, the ``Trainer`` killed and
+  resumed, and the other nine architectures at full width.
 
 Phases:
 
@@ -148,6 +151,36 @@ Phases:
     in a subprocess, exit 0.  Phase 16 runs in a process of its own:
     after phase 12's engine threads, ``torch.profiler`` records no device
     activity in this one.
+17. LM serving (``repro_torch.models``), unreduced qwen3-8b (36 layers,
+    d 4096, GQA 32/8, hd 128, vocab 151,936; 8.19e9 float32 parameters
+    drawn from ``--seed``), bf16 compute: prefill B=4 x S=1024, then 32
+    decode steps (tokens/s, ms a step, peak memory); in float32 (TF32
+    off) a 256-token prompt, 128 tokens prefilled and 128 decoded
+    teacher-forced, each position's logits within 1e-3 of max |logit| of
+    the cache-free forward's; the same in bf16 (the gap and the argmax
+    agreement printed); the port's chunked attention beside
+    ``F.scaled_dot_product_attention`` at the prefill shape (recorded);
+18. LM training: (a) qwen3-8b at full width cut to 4 layers (2.02e9
+    parameters), 24 steps of B=8 x S=512 through ``build_train_step``
+    with the QO monitor and the loop's ``observe(step_time=)``, the
+    launch counts reset just before: the loss falls, ``qo_update``
+    launches at least 72 times, the monitor equals a host copy fed the
+    same scalars (counts equal, 1e-6); ms a step, tokens/s and MFU
+    against the data sheet's 989 TFLOP/s; (b) the ``Trainer`` on reduced
+    qwen3-8b (d 256, 2 layers), killed by SIGTERM after step 8 and
+    resumed, against an uninterrupted 16-step run under
+    ``torch.use_deterministic_algorithms`` (bitwise, or within 2e-4 with
+    the op that warned named), ``publish_fn`` at each save, save and
+    restore ms;
+19. the nine other architectures at full width, depth cut to fit (2
+    layers; grok-1 1; zamba2 one hybrid period of 6; whisper 2 + 2 with
+    its 1500-frame encoder; h2o-danube a 4,608-token prefill past its
+    4,096 window, so the ring cache wraps): ``lm_loss`` forward and
+    backward (finite, MoE aux > 0), prefill and 8 decode steps; then
+    every reduced architecture in float32 on the card and on the host
+    with the same parameters and batch, loss, prefill logits and every
+    gradient within 1e-4.  Phases 17-19 run in a process of their own
+    (``CUBLAS_WORKSPACE_CONFIG`` set for 18(b)'s deterministic GEMMs).
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -157,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2261,6 +2295,546 @@ def _run_phase16(seed, phase7, smi):
                              f"{proc.stderr[-6000:]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the LM scaffolding (src/repro_torch/models, optim, train)
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_S, SERVE_DECODE = 4, 1024, 32     # phase 17, bf16
+CHECK_B, CHECK_S, CHECK_PROMPT = 2, 256, 128     # phase 17, f32 check
+GAP_PROMPT = 224                                 # phase 17, bf16 gap
+LM_TOL = 1e-3                                    # of max |logit|
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 8, 512, 24   # phase 18(a)
+TRAINER_STEPS, TRAINER_KILL = 16, 8              # phase 18(b)
+RESUME_TOL = 2e-4                                # tests/test_system.py:59
+# NVIDIA's H100 SXM data sheet, bf16 dense (the MFU denominator)
+H100_BF16_FLOPS = 989e12
+# phase 19: full width, depth cut to fit one card
+ARCH_CUTS = (("phi3-mini-3.8b", dict(n_layers=2)),
+             ("mistral-nemo-12b", dict(n_layers=2)),
+             ("moonshot-v1-16b-a3b", dict(n_layers=2)),
+             ("chameleon-34b", dict(n_layers=2)),
+             ("falcon-mamba-7b", dict(n_layers=2)),
+             ("grok-1-314b", dict(n_layers=1)),
+             ("zamba2-2.7b", dict(n_layers=6)),
+             ("whisper-medium", dict(n_layers=2, n_enc_layers=2)),
+             ("h2o-danube-3-4b", dict(n_layers=2)))
+ARCH_B, ARCH_S, ARCH_DECODE, DANUBE_PROMPT = 2, 256, 8, 4608
+
+
+def _gap(a, b):
+    """max |a - b| over max |b| (float64)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _breakdown(tag, what, fn, wall_ms, reps):
+    """Where a call's time goes: the profiler's device ms a call over
+    ``reps`` calls (no warm-up: the caller ran it), the busy share of the
+    call's ``wall_ms`` and the five largest kernels."""
+    from repro_torch.perf import profile
+    times = profile.device_times(fn, reps, warm=False)
+    if not times:
+        print(f"{tag} {what}: the profiler recorded no device time",
+              flush=True)
+        return
+    busy = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{tag} {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"({busy / wall_ms:.1%}); top kernels "
+          + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top), flush=True)
+
+
+def _teacher_forced(lm, cfg, prompt):
+    """Float32 logits (B, S, V) of the cache-free forward."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    p = lm.tree()
+    with torch.no_grad():
+        h, _, _ = T.forward(p, cfg, p["embed"][prompt].to(L.compute_dtype()),
+                            torch.arange(prompt.shape[1],
+                                         device=prompt.device))
+        h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
+        return L.mm("bsd,dv->bsv", h, p["lm_head"])
+
+
+def _decode_against(lm, cfg, prompt, n_prompt, full, dev):
+    """Prefill ``n_prompt`` tokens, then decode the rest of ``prompt``
+    teacher-forced; per position the gap to ``full`` and whether the
+    argmax agrees."""
+    import torch
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, prompt.shape[0], prompt.shape[1], device=dev)
+    cache, lg = M.prefill(lm, cfg, {"tokens": prompt[:, :n_prompt]}, cache)
+    gaps = [_gap(lg, full[:, n_prompt - 1])]
+    agree = [(lg.argmax(-1) == full[:, n_prompt - 1].argmax(-1)).float()]
+    for pos in range(n_prompt, prompt.shape[1]):
+        lg, cache = M.decode_step(lm, cfg, prompt[:, pos], cache, pos)
+        gaps.append(_gap(lg, full[:, pos]))
+        agree.append((lg.argmax(-1) == full[:, pos].argmax(-1)).float())
+    return gaps, float(torch.cat(agree).mean())
+
+
+def _lm_serve(seed, dev, smi):
+    """Phase 17: unreduced qwen3-8b served (bf16 compute): prefill, decode,
+    decode = teacher forcing in float32, the bf16 gap, and the port's
+    attention beside SDPA at the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch("qwen3-8b")
+    L.set_compute_dtype(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n = T.n_params(lm)
+    print(f"[17] {cfg.name} unreduced: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, "
+          f"vocab {cfg.vocab}: {n:,} float32 parameters "
+          f"({n * 4 / 1e9:.1f} GB), drawn in "
+          f"{time.perf_counter() - t0:.2f} s; {smi}", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    toks = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen,
+                         device=dev)
+    cache = M.init_cache(cfg, SERVE_B, SERVE_S + SERVE_DECODE, device=dev)
+    M.prefill(lm, cfg, {"tokens": toks}, cache)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = M.prefill(lm, cfg, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    pf = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(SERVE_DECODE):
+        logits, cache = M.decode_step(lm, cfg, tok, cache, SERVE_S + i)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) / SERVE_DECODE
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 17: decode logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[17] bf16 prefill B={SERVE_B} x S={SERVE_S}: {pf * 1e3:.1f} ms "
+          f"= {SERVE_B * SERVE_S / pf:,.0f} tokens/s; decode "
+          f"{SERVE_DECODE} steps of B={SERVE_B}: {dec * 1e3:.2f} ms/token "
+          f"step ({SERVE_B / dec:,.1f} tokens/s); peak memory {peak:.1f} GB; "
+          f"{smi}", flush=True)
+    last = SERVE_S + SERVE_DECODE - 1
+    _breakdown("[17]", "prefill", lambda: M.prefill(
+        lm, cfg, {"tokens": toks}, cache), pf * 1e3, 1)
+    _breakdown("[17]", "decode step", lambda: M.decode_step(
+        lm, cfg, tok, cache, last), dec * 1e3, 3)
+    del cache
+
+    # decode = teacher forcing, float32 compute, TF32 off
+    L.set_compute_dtype(torch.float32)
+    prompt = toks[:CHECK_B, :CHECK_S]
+    full = _teacher_forced(lm, cfg, prompt)
+    gaps, agree = _decode_against(lm, cfg, prompt, CHECK_PROMPT, full, dev)
+    print(f"[17] float32: prefill {CHECK_PROMPT} then {CHECK_S - CHECK_PROMPT}"
+          f" teacher-forced decode steps, B={CHECK_B}: max |decode - "
+          f"forward| / max |forward| = {max(gaps):.3g} (limit {LM_TOL}), "
+          f"argmax agreement {agree:.4f}", flush=True)
+    if max(gaps) > LM_TOL:
+        raise AssertionError(f"phase 17: decode differs from teacher "
+                             f"forcing by {max(gaps):.3g} of max |logit|")
+    del full
+    L.set_compute_dtype(torch.bfloat16)
+    full = _teacher_forced(lm, cfg, prompt)
+    gaps, agree = _decode_against(lm, cfg, prompt, GAP_PROMPT, full, dev)
+    print(f"[17] bf16: prefill {GAP_PROMPT} then {CHECK_S - GAP_PROMPT} "
+          f"decode steps: max gap {max(gaps):.3g} of max |logit| (median "
+          f"{statistics.median(gaps):.3g}), argmax agreement {agree:.4f}",
+          flush=True)
+    del full, lm
+    torch.cuda.empty_cache()
+
+    # the port's attention beside SDPA at the prefill shape (recorded)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.randn((SERVE_B, SERVE_S, H, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((SERVE_B, SERVE_S, Hkv, hd), generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(SERVE_S, device=dev)
+    ours = lambda: L._online_softmax_scan(q, k, v, pos, pos, causal=True,
+                                          window=0, kv_chunk=512,
+                                          n_rep=H // Hkv)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+    with torch.no_grad():
+        diff = float((ours().float() - sdpa().float()).abs().max())
+        ms_ours, ms_sdpa = _time_ms(ours), _time_ms(sdpa)
+    print(f"[17] attention B={SERVE_B} S={SERVE_S} H={H}/{Hkv} hd={hd} "
+          f"causal bf16: the port's chunked online softmax {ms_ours:.3f} ms, "
+          f"SDPA {ms_sdpa:.3f} ms (x{ms_ours / ms_sdpa:.1f}); max |diff| "
+          f"{diff:.3g}; {smi}", flush=True)
+
+
+def _tables_close(card, host, what):
+    """The card's monitor against the host copy: counts equal; means,
+    sums and the table's radius and origin within 1e-6 of the leaf's
+    largest magnitude; each bin's m2 within 1e-6 of the bin's sum of
+    squares n * mean^2 + m2 (the scale its float32 rounding follows, as
+    phase 3 scales the single table's sums)."""
+    import torch
+    for name, tab in host.items():
+        got = {k: v.cpu() for k, v in card[name]["y"].items()}
+        ref = tab["y"]
+        if not torch.equal(got["n"], ref["n"]):
+            raise AssertionError(f"{what} {name}/y/n: counts differ")
+        pairs = [("y/mean", got["mean"], ref["mean"], ref["mean"].abs().max()),
+                 ("y/m2", got["m2"], ref["m2"],
+                  ref["n"] * ref["mean"] ** 2 + ref["m2"].abs())]
+        pairs += [(k, card[name][k].cpu(), tab[k], tab[k].abs().max())
+                  for k in ("sum_x", "radius", "origin")]
+        for leaf, a, b, scale in pairs:
+            err = (a.double() - b.double()).abs()
+            if bool((err > 1e-6 * scale.double()).any()):
+                raise AssertionError(f"{what} {name}/{leaf}: differs by "
+                                     f"{float(err.max()):.3g}")
+
+
+def _lm_train(seed, dev, smi):
+    """Phase 18(a): qwen3-8b at full width, depth cut to TRAIN_LAYERS,
+    TRAIN_STEPS steps through build_train_step with the monitor."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import monitor as MON
+    from repro_torch.train import steps as ST
+    cfg = dataclasses.replace(configs.get_arch("qwen3-8b"),
+                              n_layers=TRAIN_LAYERS)
+    L.set_compute_dtype(torch.bfloat16)
+    shape = ShapeConfig("phase18", TRAIN_S, TRAIN_B, "train")
+    step = ST.build_train_step(cfg, shape, adamw.AdamWConfig(
+        lr=3e-4, warmup_steps=4, total_steps=TRAIN_STEPS), device=dev)
+    lm = M.init_params(cfg, seed=seed, device=dev)
+    opt = adamw.init_state(lm)
+    n = T.n_params(lm)
+    data = TokenStream(cfg.vocab, TRAIN_S, TRAIN_B, seed=seed,
+                       device=str(dev))
+    mon = MON.init_monitor(device=dev)
+    host = MON.init_monitor(device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        t0 = time.perf_counter()
+        lm, opt, met, mon = step(lm, opt, batch, mon)
+        loss = float(met["loss"])
+        dt = time.perf_counter() - t0
+        mon = MON.observe(mon, step_time=dt)
+        host = MON.observe(host, loss=met["loss"].cpu(),
+                           grad_norm=met["grad_norm"].cpu(), step_time=dt)
+        losses.append(loss)
+        times.append(dt)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["qo_update"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sec = statistics.median(times[2:])
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6 * n * tokens / sec / H100_BF16_FLOPS
+    print(f"[18a] {cfg.name} full width, depth cut 36 -> {TRAIN_LAYERS} "
+          f"layers: {n:,} parameters; B={TRAIN_B} x S={TRAIN_S}, "
+          f"{TRAIN_STEPS} steps, bf16 compute, AdamW + monitor", flush=True)
+    print(f"[18a] loss " + " ".join(f"{x:.3f}" for x in losses))
+    print(f"[18a] {sec * 1e3:.1f} ms/step (median after 2; first "
+          f"{times[0] * 1e3:.0f} ms), {tokens / sec:,.0f} tokens/s, MFU "
+          f"{mfu:.3f} (6 N tokens / time over the data sheet's 989 "
+          f"TFLOP/s bf16 dense); peak memory {peak:.1f} GB; qo_update "
+          f"launches {launches}; {smi}", flush=True)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and statistics.mean(losses[-4:]) < statistics.mean(losses[:4])):
+        raise AssertionError(f"phase 18a: the loss did not fall: {losses}")
+    if launches < 3 * TRAIN_STEPS:
+        raise AssertionError(f"phase 18a: qo_update launched {launches} "
+                             f"times, expected >= {3 * TRAIN_STEPS}")
+    _tables_close(mon, host, "phase 18a monitor")
+    s = MON.summaries(mon)
+    print(f"[18a] monitor = its host copy (counts equal, 1e-6): loss p50 "
+          f"{float(s['loss']['p50']):.3f}, grad_norm p50 "
+          f"{float(s['grad_norm']['p50']):.3f}, step_time p99 "
+          f"{float(s['step_time']['p99']):.3f} s", flush=True)
+    # two more steps, after the checks, under the profiler
+    batch = data.batch(TRAIN_STEPS)
+    _breakdown("[18a]", "train step", lambda: step(lm, opt, batch, mon),
+               sec * 1e3, 2)
+
+
+def _lm_trainer(seed, dev, smi):
+    """Phase 18(b): the Trainer end to end at a reduced width: killed by
+    SIGTERM after step TRAINER_KILL, resumed, against an uninterrupted
+    run under torch.use_deterministic_algorithms."""
+    import signal
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+    from repro_torch.train.loop import LoopConfig, Trainer
+    cfg = configs.reduced(configs.get_arch("qwen3-8b"), d_model=256,
+                          n_layers=2, n_heads=8, n_kv_heads=8, d_ff=1024,
+                          head_dim=32)
+    L.set_compute_dtype(torch.bfloat16)
+    shape = ShapeConfig("phase18b", 128, 8, "train")
+    data = TokenStream(cfg.vocab, 128, 8, seed=seed, device=str(dev))
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2,
+                            total_steps=TRAINER_STEPS)
+
+    def trainer(d, log_every=4):
+        return Trainer(cfg, shape, data, LoopConfig(
+            total_steps=TRAINER_STEPS, ckpt_every=TRAINER_KILL,
+            log_every=log_every, ckpt_dir=d, seed=seed), opt, device=dev)
+
+    def kill(rec):
+        if rec.get("step") == TRAINER_KILL - 1 and "loss" in rec:
+            signal.raise_signal(signal.SIGTERM)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pubs = {"full": [], "killed": [], "resumed": []}
+            full = trainer(os.path.join(tmp, "full"))
+            p_full, o_full, _, hist = full.run(
+                log_fn=lambda r: None,
+                publish_fn=lambda s, p: pubs["full"].append(s))
+            cut = trainer(os.path.join(tmp, "cut"), log_every=1)
+            _, _, _, hist_k = cut.run(
+                log_fn=kill, publish_fn=lambda s, p: pubs["killed"].append(s))
+            resumed = trainer(os.path.join(tmp, "cut"))
+            if resumed.ckpt.latest_step() != TRAINER_KILL:
+                raise AssertionError("phase 18b: no checkpoint at the kill")
+            p_res, o_res, _, _ = resumed.run(
+                log_fn=lambda r: None,
+                publish_fn=lambda s, p: pubs["resumed"].append(s))
+            ck = Checkpointer(os.path.join(tmp, "timed"))
+            tree = {"params": p_res.tree(), "opt": o_res}
+            nbytes = sum(t.numel() * t.element_size()
+                         for _, t in tree_leaves(tree))
+            t0 = time.perf_counter()
+            ck.save(TRAINER_STEPS, tree, blocking=True)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ck.restore(TRAINER_STEPS, dict(zip(
+                ("params", "opt"), ST.abstract_state(cfg))))
+            restore_ms = (time.perf_counter() - t0) * 1e3
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst, bitwise = 0.0, True
+    for a, b in ((p_full.tree(), p_res.tree()), (o_full, o_res)):
+        for (path, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
+            if not torch.equal(x, y):
+                bitwise = False
+                worst = max(worst, float((x.double() - y.double()).abs()
+                                         .max()))
+    print(f"[18b] Trainer on reduced {cfg.name} (d {cfg.d_model}, "
+          f"{cfg.n_layers} layers, vocab {cfg.vocab}; B=8 x S=128): "
+          f"losses {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}; SIGTERM "
+          f"after step {hist_k[-1]['step'] + 1} -> final save; resumed from "
+          f"{TRAINER_KILL}: {'bitwise equal' if bitwise else f'max |diff| {worst:.3g}'}"
+          f" to the uninterrupted run (params and AdamW state); publish "
+          f"at {pubs}; non-deterministic ops warned: {nondet or 'none'}",
+          flush=True)
+    print(f"[18b] blocking save of {nbytes / 1e6:.1f} MB {save_ms:.1f} ms, "
+          f"restore {restore_ms:.1f} ms; {smi}", flush=True)
+    if pubs != {"full": [TRAINER_KILL, TRAINER_STEPS, TRAINER_STEPS],
+                "killed": [TRAINER_KILL, TRAINER_KILL],
+                "resumed": [TRAINER_STEPS, TRAINER_STEPS]}:
+        raise AssertionError(f"phase 18b: publish_fn at {pubs}")
+    if hist[-1]["loss"] >= hist[0]["loss"]:
+        raise AssertionError("phase 18b: the Trainer's loss did not fall")
+    if not bitwise and (worst > RESUME_TOL or not nondet):
+        raise AssertionError(f"phase 18b: resume differs by {worst:.3g}")
+
+
+def _arch_batch(cfg, B, S, gen, dev, labels=True):
+    import torch
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=dev)}
+    if labels:
+        b["labels"] = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                    device=dev)
+    if cfg.family == "encdec":
+        b["enc_in"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                  generator=gen, device=dev)
+    if cfg.family == "vlm" and labels:
+        b["loss_mask"] = torch.ones((B, S), device=dev)
+    return b
+
+
+def _arch_on_card(name, cut, seed, dev, smi):
+    """Phase 19, one arch at full width: lm_loss forward + backward,
+    prefill + ARCH_DECODE decode steps (bf16 compute)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    full = configs.get_arch(name)
+    cfg = dataclasses.replace(full, **cut)
+    L.set_compute_dtype(torch.bfloat16)
+    lm = M.init_params(cfg, seed=seed, device=dev)
+    n = T.n_params(lm)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 19)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, m = M.lm_loss(lm, cfg, _arch_batch(cfg, ARCH_B, ARCH_S, gen, dev))
+    loss.backward()
+    torch.cuda.synchronize()
+    fb = (time.perf_counter() - t0) * 1e3
+    if not (math.isfinite(float(loss.detach())) and all(
+            bool(torch.isfinite(p.grad).all()) for p in lm.parameters())):
+        raise AssertionError(f"phase 19 {name}: loss or gradients not finite")
+    if cfg.is_moe and not float(m["aux"].detach()) > 0:
+        raise AssertionError(f"phase 19 {name}: MoE aux loss not positive")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for p in lm.parameters():
+        p.grad = None
+    S = DANUBE_PROMPT if cfg.swa_window else ARCH_S
+    cache = M.init_cache(cfg, ARCH_B, S + ARCH_DECODE, device=dev)
+    batch = _arch_batch(cfg, ARCH_B, S, gen, dev, labels=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = M.prefill(lm, cfg, batch, cache)
+    torch.cuda.synchronize()
+    pf = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(ARCH_DECODE):
+        logits, cache = M.decode_step(lm, cfg, tok, cache, S + i)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) / ARCH_DECODE * 1e3
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase 19 {name}: decode logits not finite")
+    ring = ""
+    if "pos" in cache.get("attn", {}):
+        W = cache["attn"]["k"].shape[2]
+        ring = f", ring cache of {W} slots wrapped past {S} tokens"
+        if not S > W:
+            raise AssertionError(f"phase 19 {name}: the ring did not wrap")
+    cut_s = ", ".join(f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items())
+    print(f"[19] {name}: {cut_s}; {n:,} parameters; fwd+bwd B={ARCH_B} x "
+          f"S={ARCH_S} {fb:.1f} ms (loss {float(loss.detach()):.3f}, aux "
+          f"{float(m['aux'].detach()):.3f}, peak {peak:.1f} GB); prefill B={ARCH_B} x "
+          f"S={S} {ARCH_B * S / pf:,.0f} tokens/s; decode {dec:.2f} ms/token "
+          f"step{ring}", flush=True)
+    del lm, cache
+    torch.cuda.empty_cache()
+
+
+def _arch_card_vs_host(name, seed, dev):
+    """Phase 19: reduced(name) in float32 on the card and on the host with
+    the same parameters and batch: loss, gradients' norm and prefill
+    logits within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, convert
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = configs.reduced(configs.get_arch(name))
+    L.set_compute_dtype(torch.float32)
+    host = M.init_params(cfg, seed=seed, device="cpu")
+    card = convert.lm_params_from_numpy(
+        cfg, convert.lm_params_to_numpy(host), device=dev)
+    rng = np.random.default_rng(seed + 19)
+    b = {"tokens": rng.integers(0, cfg.vocab, (2, 32)),
+         "labels": rng.integers(0, cfg.vocab, (2, 32))}
+    if cfg.family == "encdec":
+        b["enc_in"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model),
+                                          dtype=np.float32)
+    outs = {}
+    for where, lm in (("cpu", host), (dev, card)):
+        tb = {k: torch.as_tensor(v, device=where) for k, v in b.items()}
+        loss, _ = M.lm_loss(lm, cfg, tb, kv_chunk=16, loss_chunk=16)
+        loss.backward()
+        cache = M.init_cache(cfg, 2, 40, device=where)
+        _, lg = M.prefill(lm, cfg, {k: v for k, v in tb.items()
+                                    if k != "labels"}, cache, kv_chunk=16)
+        outs[str(where)] = (loss.detach().cpu(), lg.cpu(), [
+            p.grad.cpu() for p in lm.parameters() if p.grad is not None])
+    (l0, g0, gr0), (l1, g1, gr1) = outs["cpu"], outs[str(dev)]
+    errs = [_gap(l1, l0), _gap(g1, g0)] + [_gap(a, b) for a, b in
+                                           zip(gr1, gr0) if b.abs().max() > 0]
+    if max(errs) > TOL:
+        raise AssertionError(f"phase 19 {name}: card and host differ by "
+                             f"{max(errs):.3g}")
+    return max(errs)
+
+
+def lm_phases(seed, smi):
+    """Phases 17-19 on their own (a fresh process: the qwen3-8b phases use
+    up to ~70 GB of the card, and 18(b)'s deterministic cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG before the first GEMM)."""
+    import torch
+    from repro_torch.kernels import _build
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _lm_serve(seed, dev, smi)
+    t1 = time.perf_counter()
+    _lm_train(seed, dev, smi)
+    torch.cuda.empty_cache()
+    _lm_trainer(seed, dev, smi)
+    t2 = time.perf_counter()
+    errs = {}
+    for name, cut in ARCH_CUTS:
+        _arch_on_card(name, cut, seed, dev, smi)
+    for name in sorted(dict(ARCH_CUTS)) + ["qwen3-8b"]:
+        errs[name] = _arch_card_vs_host(name, seed, dev)
+    print(f"[19] reduced archs, float32, card vs host (same parameters and "
+          f"batch; loss, prefill logits, every gradient): max gap "
+          + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+          + f" (limit {TOL}); {smi}", flush=True)
+    print(f"[17-19] phase 17 {t1 - t0:.1f} s, phase 18 {t2 - t1:.1f} s, "
+          f"phase 19 {time.perf_counter() - t2:.1f} s", flush=True)
+
+
+def _run_lm_phases(seed, smi):
+    """Phases 17-19 in a fresh process (see :func:`lm_phases`)."""
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as cs; cs.lm_phases({seed!r}, {smi!r})"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phases 17-19 exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2480,6 +3054,9 @@ def main(argv=None) -> int:
 
     # ---- 16. the perf layer: tuner, cache, op costs, trace ---------------
     _run_phase16(args.seed, phase7, smi)
+
+    # ---- 17-19. the LM scaffolding: serving, training, the other archs ---
+    _run_lm_phases(args.seed, smi)
 
     # launches from the phase whose path runs each kernel
     for row in rows:

@@ -24,8 +24,9 @@ gives ``trees/ao_y/mean``, ``err_win/n``, ``rng`` ...; a tree state
   and raises :class:`CheckpointCorruption` on any defect, truncated or
   unreadable files included.  A tensor leaf of the template comes back as
   a tensor of the template leaf's dtype on the template leaf's device (a
-  restore never moves state to the CPU on its own); a numpy leaf comes
-  back as numpy.
+  restore never moves state to the CPU on its own) -- a ``meta`` leaf, a
+  shape-only template, comes back on the CPU for ``reshard`` to place; a
+  numpy leaf comes back as numpy.
 * ``restore_latest`` walks the steps newest-first and skips corrupt ones
   (the serving engine's crash recovery).
 
@@ -122,8 +123,10 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray]):
                 f"checkpoint leaf {key!r} shape {arr.shape} != template "
                 f"{shape}")
         if torch.is_tensor(leaf):
-            return torch.as_tensor(arr).to(device=leaf.device,
-                                           dtype=leaf.dtype)
+            # a meta leaf is a shape-only template (the reference's
+            # ShapeDtypeStruct): it comes back on the host, for reshard
+            where = "cpu" if leaf.device.type == "meta" else leaf.device
+            return torch.as_tensor(arr).to(device=where, dtype=leaf.dtype)
         return arr.astype(np.asarray(leaf).dtype)
     return _rebuild(template, leaf_fn)
 

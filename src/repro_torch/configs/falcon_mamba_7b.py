@@ -1,0 +1,8 @@
+"""falcon-mamba-7b: attention-free mamba1, state 16. [arXiv:2410.05355; unverified]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="falcon-mamba-7b", family="ssm",
+    n_layers=64, d_model=4096, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab=65024, ssm_state=16, ssm_version=1,
+)

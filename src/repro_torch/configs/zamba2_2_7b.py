@@ -1,0 +1,10 @@
+"""zamba2-2.7b: mamba2 backbone + weight-shared attention block.
+[arXiv:2411.15242; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="zamba2-2.7b", family="hybrid",
+    n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=10240, vocab=32000, ssm_state=64, ssm_version=2,
+    ssm_head_dim=64, hybrid_period=6,
+)

@@ -1,5 +1,6 @@
-"""Carry tree states, forest states, data-parallel trainer states and
-snapshots across from the JAX package (as numpy arrays) and back.
+"""Carry tree states, forest states, data-parallel trainer states,
+snapshots, and LM parameters and AdamW states across from the JAX package
+(as numpy arrays) and back.
 
 Key names, shapes and dtypes are the same on both sides.  One leaf does
 not carry over: the reference's threefry ``keys`` (ROADMAP C3).  It is
@@ -14,10 +15,13 @@ import torch
 
 from repro_torch import device as dv
 from repro_torch.core.serve import Snapshot, validate_snapshot
+from repro_torch.models.transformer import LM, tree_of
 from repro_torch.train.sharding import shard_rng_state
 
 __all__ = ["state_from_numpy", "state_to_numpy", "dp_state_from_numpy",
-           "dp_state_to_numpy", "snapshot_from_numpy", "snapshot_to_numpy"]
+           "dp_state_to_numpy", "snapshot_from_numpy", "snapshot_to_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "lm_opt_state_from_numpy", "lm_opt_state_to_numpy"]
 
 _SNAPSHOT_ARRAYS = ("feature", "threshold", "child", "is_leaf", "leaf_mean",
                     "vote_w")
@@ -87,3 +91,28 @@ def snapshot_to_numpy(snap: Snapshot) -> dict:
     """The six snapshot arrays as numpy."""
     return {k: getattr(snap, k).detach().cpu().numpy()
             for k in _SNAPSHOT_ARRAYS}
+
+
+def lm_params_from_numpy(cfg, tree, device=None):
+    """The reference's LM parameter pytree (nested dicts of numpy arrays,
+    ``models/model.py::init_params``'s layout) -> an
+    :class:`repro_torch.models.transformer.LM` on ``device`` (default
+    ``cuda``)."""
+    return LM(cfg, _to_torch(tree, dv.resolve(device)))
+
+
+def lm_params_to_numpy(params):
+    """An :class:`~repro_torch.models.transformer.LM` (or its ``tree()``)
+    -> the reference's nested dict of numpy arrays."""
+    return state_to_numpy(tree_of(params))
+
+
+def lm_opt_state_from_numpy(opt, device=None):
+    """The reference's AdamW state ``{m, v, step}`` (numpy) -> tensors on
+    ``device`` (default ``cuda``); ``step`` a 0-d int32 tensor."""
+    return _to_torch(opt, dv.resolve(device))
+
+
+def lm_opt_state_to_numpy(opt):
+    """The port's AdamW state -> ``{m, v, step}`` as numpy."""
+    return state_to_numpy(opt)

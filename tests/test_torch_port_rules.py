@@ -31,7 +31,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import (ebst, qo_merge, qo_query, qo_query_batched,
                                  qo_route, qo_update, qo_update_leaves,
                                  sketch_compact)
+from repro_torch import configs as tcfg
+from repro_torch.data import tokens as ttokens
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import model as tmodel
+from repro_torch.train import loop as tloop
 from repro_torch.train import sharding as tsh
+from repro_torch.train import steps as tsteps
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -65,7 +71,10 @@ def test_every_port_module_is_scanned():
             "synth", "convert", "qo", "sketch", "qo_update", "qo_query",
             "sketch_compact", "qo_merge", "sharding", "compress", "ckpt",
             "engine", "faults", "ebst", "multi", "monitor", "ref", "tune",
-            "opcost", "profile"} <= names
+            "opcost", "profile", "base", "layers", "ssm", "transformer",
+            "model", "adamw", "tokens", "steps", "loop", "train",
+            "qwen3_8b", "grok_1_314b", "zamba2_2_7b",
+            "whisper_medium"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",
@@ -118,6 +127,42 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU is visible"):
             call()
+
+
+def test_lm_entry_points_without_device_raise_without_gpu(no_gpu):
+    cfg = tcfg.reduced(tcfg.get_arch("qwen3-8b"))
+    shape = tcfg.ShapeConfig("t", 16, 2, "train")
+    calls = [lambda: tmodel.init_params(cfg),
+             lambda: tmodel.init_cache(cfg, 2, 16),
+             lambda: tsteps.build_train_step(cfg, shape),
+             lambda: tsteps.build_serve_steps(cfg, shape),
+             lambda: tloop.Trainer(cfg, shape, None, tloop.LoopConfig()),
+             lambda: ttokens.TokenStream(64, 16, 2).batch(0),
+             lambda: tlaunch.main(["--reduced", "--steps", "1"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no GPU is visible"):
+            call()
+
+
+def test_lm_sharding_options_are_refused(tmp_path):
+    """The LM sharding layer (mesh, seq_parallel, sharding_style, the
+    un-donated step; the launcher's --mesh, --data-par, --model-par) is
+    not ported: ROADMAP A14b."""
+    cfg = tcfg.reduced(tcfg.get_arch("qwen3-8b"))
+    shape = tcfg.ShapeConfig("t", 16, 2, "train")
+    for kw in (dict(mesh="pod"), dict(seq_parallel=True),
+               dict(sharding_style="fsdp"), dict(donate=False)):
+        with pytest.raises(NotImplementedError, match="A14b"):
+            tsteps.build_train_step(cfg, shape, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        tsteps.build_serve_steps(cfg, shape, device="cpu", mesh="pod")
+    with pytest.raises(NotImplementedError, match="A14b"):
+        tloop.Trainer(cfg, shape, None, tloop.LoopConfig(
+            ckpt_dir=str(tmp_path)), device="cpu", mesh="pod")
+    for argv in (["--mesh", "pod"], ["--data-par", "2"],
+                 ["--model-par", "2"]):
+        with pytest.raises(NotImplementedError, match="A14b"):
+            tlaunch.main(["--reduced", "--device", "cpu", *argv])
 
 
 def test_state_on_another_device_is_refused():

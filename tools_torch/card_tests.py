@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py``,
-``tests/test_torch_ebst.py`` and ``tests/test_torch_perf.py`` on a GPU
-machine without JAX: the modules' JAX and reference imports (which only
-their CPU tests use) are stubbed with empty modules.
+``tests/test_torch_ebst.py``, ``tests/test_torch_perf.py`` and
+``tests/test_torch_lm_card.py`` on a GPU machine without JAX: the
+modules' JAX and reference imports (which only their CPU tests use) are
+stubbed with empty modules.  ``CUBLAS_WORKSPACE_CONFIG`` is set for the
+deterministic resume test before CUDA starts.
 
     python3 tools_torch/card_tests.py [pytest arguments]
 
@@ -26,6 +28,7 @@ for name in STUBS:
     if parent:
         setattr(sys.modules[parent], child, sys.modules[name])
 sys.path.insert(0, os.path.join(ROOT, "src"))
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout, flush=True)
@@ -43,4 +46,5 @@ sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
                       *(os.path.join(ROOT, "tests", f) + "::TestOnCard"
                         for f in ("test_torch_kernels.py",
                                   "test_torch_ebst.py",
-                                  "test_torch_perf.py"))]))
+                                  "test_torch_perf.py",
+                                  "test_torch_lm_card.py"))]))
