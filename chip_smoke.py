@@ -27,7 +27,10 @@ Seven paths at full width, each fatal on failure:
   stream at n = 10^3..10^6;
 * the LM scaffolding: qwen3-8b served unreduced and trained at full
   width (4 layers) with the QO monitor, the ``Trainer`` killed and
-  resumed, and the other nine architectures at full width.
+  resumed, and the other nine architectures at full width;
+* the LM's multi-device layer: the same training step over a one-rank
+  NCCL ``DeviceMesh`` (DTensor parameters, optimizer state and batch),
+  and the dry-run of two production cells on a fake 256-rank mesh.
 
 Phases:
 
@@ -181,6 +184,21 @@ Phases:
     with the same parameters and batch, loss, prefill logits and every
     gradient within 1e-4.  Phases 17-19 run in a process of their own
     (``CUBLAS_WORKSPACE_CONFIG`` set for 18(b)'s deterministic GEMMs).
+
+20. the LM's multi-device layer, in a process of its own: (a) phase
+    18a's configuration (qwen3-8b at full width, 4 layers, B=8 x S=512,
+    bf16, the same weights and batches) through ``build_train_step(mesh=)``
+    over a one-rank NCCL ``DeviceMesh`` (1 x 1, ("data", "model")) for 8
+    steps, then one ``seq_parallel`` and one ``sharding_style="gather"``
+    step: each step's loss and grad norm within 1e-4 of the unsharded
+    step's (bitwise equality printed), ``qo_update`` 3 launches a step
+    (loss, grad norm, step time), ms a step, tokens/s and MFU beside the
+    unsharded step's in the same process; (b) the dry-run
+    (``repro_torch.launch.dryrun``) of phi3-mini ``decode_32k`` and
+    qwen3-8b ``train_4k`` on the fake 16x16 mesh, each a subprocess
+    (the two at once, after (a)), status ok, the three roofline
+    terms, ``useful_flops_ratio`` and seconds; (c) ``hlocost.analyze``
+    over one sharded step, its flops against 6 N tokens.
 
 Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -2835,6 +2853,214 @@ def _run_lm_phases(seed, smi):
                              f"{proc.stderr[-6000:]}")
 
 
+PHASE18A_MS = 364.8   # phase 18a's ms a step, NVIDIA H100 80GB HBM3, 700 W
+SHARDED_STEPS = 8                                 # phase 20(a)
+DRYRUN_CELLS = (("phi3-mini-3.8b", "decode_32k"), ("qwen3-8b", "train_4k"))
+
+
+def _agree(a, b, what, step):
+    """|a - b| within TOL of max(1, |b|) for two float metrics."""
+    if not abs(a - b) <= TOL * max(1.0, abs(b)):
+        raise AssertionError(f"phase 20a step {step}: sharded {what} {a!r} "
+                             f"vs unsharded {b!r}")
+
+
+def _run_dryruns(tmp):
+    """Phase 20(b): the two dry-run cells, each a subprocess of its own
+    (the dry-run's fake 512-rank group must be its process's first),
+    run at once."""
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}.json")
+        procs.append((arch, shape, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    cells = {}
+    for arch, shape, out, t0, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 20b: the dry-run of {arch} x "
+                                 f"{shape} exited {proc.returncode}:\n"
+                                 f"{log[-4000:]}")
+        with open(out) as f:
+            r = json.load(f)[0]
+        if r["status"] != "ok" or r["chips"] != 256:
+            raise AssertionError(f"phase 20b: {arch} x {shape}: {r}")
+        print(f"[20b] dry-run {arch} x {shape} on the fake 16x16 mesh: "
+              f"status {r['status']}, {r['chips']} ranks; rank 0: "
+              f"{r['hlo_flops_per_chip']:.4g} flops, "
+              f"{r['hlo_bytes_per_chip']:.4g} bytes, "
+              f"{r['collective_bytes_per_chip']:.4g} collective bytes "
+              f"{json.dumps(r['collective_breakdown'])}; t_compute "
+              f"{r['t_compute_s']:.4g} s, t_memory {r['t_memory_s']:.4g} s, "
+              f"t_collective {r['t_collective_s']:.4g} s (a lower bound), "
+              f"bottleneck {r['bottleneck']}, useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.4f}; {secs:.1f} s", flush=True)
+        cells[(arch, shape)] = r
+    return cells
+
+
+def sharded_lm_phase(seed, smi):
+    """Phase 20 on its own (a fresh process, as phases 17-19): the LM's
+    sharded train step through a one-rank NCCL ``DeviceMesh`` against the
+    unsharded step, the dry-run in subprocesses and the op-count walker
+    over one sharded step."""
+    import dataclasses
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, hlocost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import monitor as MON
+    from repro_torch.train import steps as ST
+
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="phase20_")
+
+    cfg = dataclasses.replace(configs.get_arch("qwen3-8b"),
+                              n_layers=TRAIN_LAYERS)
+    L.set_compute_dtype(torch.bfloat16)
+    shape = ShapeConfig("phase20", TRAIN_S, TRAIN_B, "train")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=4,
+                                total_steps=TRAIN_STEPS)
+    data = TokenStream(cfg.vocab, TRAIN_S, TRAIN_B, seed=seed,
+                       device=str(dev))
+    n_steps = SHARDED_STEPS + 2        # + one seq_parallel, one "gather"
+    tokens = TRAIN_B * TRAIN_S
+
+    def run(step_of, lm):
+        opt = adamw.init_state(lm)
+        mon = MON.init_monitor(device=dev)
+        mets, times, counts = [], [], []
+        for i in range(n_steps):
+            batch = data.batch(i)
+            _sync()
+            before = _build.LAUNCHES["qo_update"]
+            t0 = time.perf_counter()
+            lm, opt, met, mon = step_of(i)(lm, opt, batch, mon)
+            loss = float(met["loss"])
+            dt = time.perf_counter() - t0
+            mon = MON.observe(mon, step_time=dt)
+            _sync()
+            counts.append(_build.LAUNCHES["qo_update"] - before)
+            mets.append((loss, float(met["grad_norm"])))
+            times.append(dt)
+        return lm, opt, mon, mets, times, counts
+
+    # the unsharded step (phase 18a's), the reference for every step
+    plain = ST.build_train_step(cfg, shape, opt_cfg, device=dev)
+    lm = M.init_params(cfg, seed=seed, device=dev)
+    n = T.n_params(lm)
+    _build.reset_launches()
+    _, _, _, ref, ref_t, _ = run(lambda i: plain, lm)
+    del lm, plain
+    torch.cuda.empty_cache()
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_local_mesh(1, 1)
+        steps = {kw: ST.build_train_step(cfg, shape, opt_cfg, device=dev,
+                                         mesh=mesh, **dict(kw))
+                 for kw in ((), (("seq_parallel", True),),
+                            (("sharding_style", "gather"),))}
+        order = [()] * SHARDED_STEPS + [(("seq_parallel", True),),
+                                        (("sharding_style", "gather"),)]
+        lm = M.init_params(cfg, seed=seed, device=dev, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        lm, opt, mon, got, got_t, counts = run(lambda i: steps[order[i]], lm)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = _build.LAUNCHES["qo_update"]
+        bitwise = got == ref
+        for i, ((l, g), (lr, gr)) in enumerate(zip(got, ref)):
+            _agree(l, lr, "loss", i)
+            _agree(g, gr, "grad norm", i)
+        if counts != [3] * n_steps:
+            raise AssertionError(f"phase 20a: qo_update launches a step "
+                                 f"{counts}, expected 3 each")
+        sec = statistics.median(got_t[2:SHARDED_STEPS])
+        sec_u = statistics.median(ref_t[2:SHARDED_STEPS])
+        mfu = lambda t: 6 * n * tokens / t / H100_BF16_FLOPS
+        gap = max(max(abs(a - b) for a, b in zip(x, y))
+                  for x, y in zip(got, ref))
+        print(f"[20a] {cfg.name} full width, {TRAIN_LAYERS} layers "
+              f"({n:,} parameters), B={TRAIN_B} x S={TRAIN_S}, bf16: "
+              f"build_train_step(mesh=) over a one-rank NCCL DeviceMesh "
+              f"(1 x 1, data/model) for {SHARDED_STEPS} steps, then one "
+              f"seq_parallel and one sharding_style='gather' step, "
+              f"against the unsharded step on the same weights and "
+              f"batches: loss and grad norm within {TOL} on every step "
+              f"(max gap {gap:.3g}; bitwise equal: {bitwise}); qo_update "
+              f"{launches} launches ({counts[0]} a step)", flush=True)
+        print(f"[20a] loss " + " ".join(f"{l:.4f}" for l, _ in got))
+        print(f"[20a] sharded {sec * 1e3:.1f} ms/step, {tokens / sec:,.0f} "
+              f"tokens/s, MFU {mfu(sec):.3f}; unsharded in this process "
+              f"{sec_u * 1e3:.1f} ms/step, {tokens / sec_u:,.0f} tokens/s, "
+              f"MFU {mfu(sec_u):.3f} (median of steps 2-7; phase 18a "
+              f"recorded {PHASE18A_MS} ms); DTensor overhead "
+              f"{(sec - sec_u) * 1e3:.1f} ms a step; peak memory "
+              f"{peak:.1f} GB; {smi}", flush=True)
+
+        # ---- 20c: the walker over one sharded step -----------------------
+        batch = data.batch(n_steps)
+        walked = hlocost.analyze(lambda: steps[()](lm, opt, batch, mon))
+        mf = dryrun.model_flops(cfg, shape)
+        print(f"[20c] hlocost.analyze of one sharded step: "
+              f"{walked['flops']:.4g} flops ({walked['flops'] / mf:.3f} x "
+              f"model_flops = 6 N tokens = {mf:.4g}), "
+              f"{walked['bytes']:.4g} bytes, collectives "
+              f"{json.dumps(walked['collectives'])}", flush=True)
+        # 6 N tokens counts the embedding table's products, which a
+        # lookup never does, and not remat's second forward nor attention
+        if not 0.5 * mf <= walked["flops"] <= 2.0 * mf:
+            raise AssertionError(f"phase 20c: the walker counted "
+                                 f"{walked['flops']} flops, outside half "
+                                 f"to twice 6 N tokens {mf}")
+    finally:
+        dist.destroy_process_group()
+    try:
+        _run_dryruns(tmp)          # 20b, after 20a: no host contention
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_phase20(seed, smi):
+    """Phase 20 in a fresh process (see :func:`sharded_lm_phase`)."""
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as cs; cs.sharded_lm_phase({seed!r}, {smi!r})"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20 exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+    print(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3057,6 +3283,9 @@ def main(argv=None) -> int:
 
     # ---- 17-19. the LM scaffolding: serving, training, the other archs ---
     _run_lm_phases(args.seed, smi)
+
+    # ---- 20. the LM's sharding layer ---------------------------------------
+    _run_phase20(args.seed, smi)
 
     # launches from the phase whose path runs each kernel
     for row in rows:

@@ -29,6 +29,12 @@ gives ``trees/ao_y/mean``, ``err_win/n``, ``rng`` ...; a tree state
   numpy leaf comes back as numpy.
 * ``restore_latest`` walks the steps newest-first and skips corrupt ones
   (the serving engine's crash recovery).
+* Under a ``DeviceMesh`` a DTensor leaf is saved whole (``full_tensor``,
+  a collective every rank takes part in; a ``Checkpointer`` built with
+  ``write=False`` then writes nothing, so one rank writes) and restored
+  into a DTensor template leaf by ``distribute_tensor`` on the template's
+  mesh and placements.  A sharded trainer's checkpoint is therefore the
+  same file as a one-device one, and crosses to the reference both ways.
 
 A forest state's generator state ``rng`` (a CPU uint8 tensor: 5,056
 bytes for a CPU generator, 16 for a CUDA one) is saved as a leaf and
@@ -101,8 +107,18 @@ def _rebuild(template, leaf_fn, prefix=()):
     return type(template)(new)
 
 
+def _dtensor(leaf) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _host_copy(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that shares no memory with it."""
+    """A host copy of ``leaf`` that shares no memory with it (a DTensor
+    whole)."""
+    if _dtensor(leaf):
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
@@ -122,6 +138,13 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray]):
             raise CheckpointCorruption(
                 f"checkpoint leaf {key!r} shape {arr.shape} != template "
                 f"{shape}")
+        if _dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            mesh = leaf.device_mesh
+            whole = torch.as_tensor(arr).to(
+                device=torch.device(mesh.device_type), dtype=leaf.dtype)
+            return distribute_tensor(whole, mesh, leaf.placements,
+                                     src_data_rank=None)
         if torch.is_tensor(leaf):
             # a meta leaf is a shape-only template (the reference's
             # ShapeDtypeStruct): it comes back on the host, for reshard
@@ -132,10 +155,12 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray]):
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3, host_id: int = 0):
+    def __init__(self, directory: str, keep: int = 3, host_id: int = 0,
+                 write: bool = True):
         self.dir = directory
         self.keep = keep
         self.host_id = host_id
+        self.write = write
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -144,8 +169,12 @@ class Checkpointer:
     def save(self, step: int, tree, blocking: bool = False):
         """Snapshot ``tree``: every leaf is copied to the host before this
         returns (so the caller may go on updating its state in place);
-        the file IO runs on a worker thread unless ``blocking``."""
+        the file IO runs on a worker thread unless ``blocking``.  With
+        ``write=False`` the copies are made (DTensors gathered) and
+        nothing is written."""
         flat = _flatten(tree)
+        if not self.write:
+            return
         self.wait()  # one write in flight at a time
 
         def _write():

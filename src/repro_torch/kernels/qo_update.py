@@ -127,7 +127,8 @@ def update_kernel(n, mean, m2, sum_x, radius, origin, x, y, w):
 
 
 def update(n, mean, m2, sum_x, radius, origin, x, y, w):
-    """The plain version on a CPU tensor, else the kernel (or a raise)."""
-    if x.device.type == "cpu":
+    """The plain version on a CPU tensor (or a meta one, which computes
+    nothing: the dry-run's), else the kernel (or a raise)."""
+    if x.device.type in ("cpu", "meta"):
         return update_plain(n, mean, m2, sum_x, radius, origin, x, y, w)
     return update_kernel(n, mean, m2, sum_x, radius, origin, x, y, w)

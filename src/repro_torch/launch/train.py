@@ -6,9 +6,14 @@
 Runs on the card unless ``--device`` names another device.  Compute is
 bf16 on ``cuda`` and float32 elsewhere (the reference's ``--f32`` rule,
 with the card in the TPU's place).  Auto-resumes from ``--ckpt-dir``;
-SIGTERM triggers a final save.  ``--mesh`` other than ``local`` and
-``--data-par`` / ``--model-par`` above 1 are the sharding layer (ROADMAP
-A14b) and are refused.
+SIGTERM triggers a final save.
+
+``--mesh local --data-par D --model-par M`` trains over a D x M
+("data", "model") ``DeviceMesh`` of the default process group's ranks
+(clamped to them; one process a rank, e.g. under ``torchrun``, with gloo
+for ``--device cpu``); ``--mesh pod`` / ``multipod`` takes the 16x16 /
+2x16x16 production mesh (256 / 512 ranks).  A local 1 x 1 mesh is the
+one-device step.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch import configs
 from repro_torch import device as dv
 from repro_torch.configs import ShapeConfig, reduced
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import layers as L
 from repro_torch.optim import adamw
 from repro_torch.train import monitor as MON
@@ -52,12 +58,15 @@ def main(argv=None):
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "local" or args.data_par > 1 or args.model_par > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} --data-par {args.data_par} --model-par "
-            f"{args.model_par}: the LM sharding layer is not ported yet "
-            f"(ROADMAP A14b); one device only")
-    dev = dv.resolve(args.device)
+    mesh = None
+    if args.mesh == "local":
+        if args.data_par * args.model_par > 1:
+            mesh = make_local_mesh(args.data_par, args.model_par,
+                                   device=args.device)
+    else:
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multipod"),
+                                    device=args.device)
+    dev = dv.resolve(args.device)   # after the mesh: its rank's card
 
     cfg = configs.get_arch(args.arch)
     if args.reduced:
@@ -76,7 +85,7 @@ def main(argv=None):
                     ckpt_dir=args.ckpt_dir, microbatch=args.microbatch)
     opt = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                             warmup_steps=max(10, args.steps // 20))
-    trainer = Trainer(cfg, shape, data, lc, opt, device=dev)
+    trainer = Trainer(cfg, shape, data, lc, opt, device=dev, mesh=mesh)
     _, _, mon, _ = trainer.run(
         log_fn=lambda rec: print(json.dumps(rec), flush=True))
     print(json.dumps({"monitor": {

@@ -14,14 +14,20 @@ one to one.  The algorithms are the reference's, in its order:
   where the reference asks for ``preferred_element_type=float32`` and
   keeps the result, return it in float32 (:func:`mm`, :func:`dot`).
 
-``constrain`` is the identity: one device has no sharding to pin.
+Under a mesh the parameters are ``torch.distributed.tensor`` DTensors:
+the products (:func:`_sharded_product`), attention (:func:`_sharded_scan`),
+the cache writes (:func:`store_seq`) and the MoE combine run on local
+shards around explicit redistributes, every other op through DTensor's
+sharding rules; :func:`constrain` pins the residual stream's placements
+at each layer boundary, and is the identity without a mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["set_compute_dtype", "compute_dtype", "cast", "constrain", "dot",
+__all__ = ["set_compute_dtype", "compute_dtype", "cast", "is_dtensor",
+           "constrain", "store_seq", "gather_seq", "dot",
            "mm",
            "set_lean_internals", "rms_norm", "rope", "repeat_kv",
            "attention", "swiglu", "set_moe_combine_dtype", "moe", "top_k"]
@@ -42,10 +48,69 @@ def cast(x):
     return x.to(_COMPUTE_DTYPE[0])
 
 
+def is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def constrain(x, spec=None):
-    """The reference pins a sharding on the residual stream here; one
-    device has nothing to pin."""
-    return x
+    """Pin a spec (:class:`repro_torch.train.sharding.Spec`) on an
+    activation: the reference's ``with_sharding_constraint`` on the
+    residual stream at every layer boundary, here a ``redistribute`` of
+    the DTensor to the spec's placements on its own mesh.  The identity
+    when ``spec`` is None or ``x`` is a plain tensor (no mesh)."""
+    if spec is None or not is_dtensor(x):
+        return x
+    from repro_torch.train.sharding import placements
+    pl = placements(x.device_mesh, spec)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _seq_sharded(t) -> bool:
+    return is_dtensor(t) and any(p.is_shard(1) for p in t.placements)
+
+
+def store_seq(dst, start: int, src):
+    """``dst[:, start:start + n] = src`` in place along axis 1 (a cache's
+    sequence axis).  Where a mesh shards that axis (``cache_specs``'
+    fallback when the KV heads do not divide TP), DTensor's slice rule
+    would gather the cache into a copy and write there: each rank writes
+    the part of the range its own shard holds, from ``src`` replicated
+    along axis 1 (an explicit redistribute)."""
+    n = src.shape[1]
+    if not _seq_sharded(dst):
+        dst[:, start:start + n] = src
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = dst.device_mesh
+    src = src.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in dst.placements]).to_local()
+    loc = dst.to_local()
+    _, off = compute_local_shape_and_global_offset(dst.shape, mesh,
+                                                   dst.placements)
+    lo = max(start, off[1])
+    hi = min(start + n, off[1] + loc.shape[1])
+    if lo < hi:
+        loc[:, lo - off[1]:hi - off[1]] = \
+            src[:, lo - start:hi - start].to(loc.dtype)
+
+
+def gather_seq(t):
+    """A cache replicated along its sequence axis (axis 1) where a mesh
+    shards it: decode attends over the whole cache, gathered once a layer
+    (an explicit redistribute; DTensor would otherwise gather it again for
+    every KV chunk's slice)."""
+    if not _seq_sharded(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(1)
+                                          else p for p in t.placements])
 
 
 class _NarrowDot(torch.autograd.Function):
@@ -105,10 +170,78 @@ def _product(eq, a, b, out_dtype):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def _letter(p, term):
+    """The einsum letter a plain ``Shard`` splits, else None."""
+    from torch.distributed.tensor import Shard
+    return term[p.dim] if type(p) is Shard else None
+
+
+def _sharded_product(fn, eq, a, b, *args):
+    """``fn(eq, a, b, *args)`` (:func:`dot` or :func:`mm`) of DTensors,
+    each rank running the einsum on its local operands.
+
+    The plan, per mesh dim: on the model (TP) axis the letter the second
+    operand (the weight) splits, else the one the first (the activation)
+    splits; on the data axes the activation's first, then the weight's
+    -- weights keep their tensor-parallel split and are gathered over
+    the data axes (FSDP), activations keep their batch split and are
+    gathered over the model axis where they were sequence-split
+    (Megatron's sequence parallelism).  Each operand is explicitly
+    redistributed to split that letter where it has it and to be whole
+    otherwise (a weight's FSDP all-gather, a partial sum's reduction);
+    the result splits the letter where the output keeps it and is
+    partial where it is summed.  An
+    operand whole on a mesh dim that splits the result gets its gradient
+    as a partial sum there.  (Through DTensor's rules the einsum's
+    reshapes can split an output axis the mesh does not divide, e.g.
+    8 KV heads over a 16-wide model axis, and fail.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, out_t = eq.split("->")
+    ta, tb = ins.split(",")
+    mesh = next(t for t in (a, b) if is_dtensor(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    a, b = (t if is_dtensor(t) else DTensor.from_local(t, mesh, rep)
+            for t in (a, b))
+    pa, pb, po = [], [], []
+    for name, xa, xb in zip(mesh.mesh_dim_names, a.placements,
+                            b.placements):
+        if name == "model":
+            L = _letter(xb, tb) or _letter(xa, ta)
+        else:
+            L = _letter(xa, ta) or _letter(xb, tb)
+        pa.append(Shard(ta.index(L)) if L and L in ta else Replicate())
+        pb.append(Shard(tb.index(L)) if L and L in tb else Replicate())
+        po.append(Replicate() if L is None else
+                  Shard(out_t.index(L)) if L in out_t else Partial())
+
+    def grad_pl(pl):
+        return [Partial() if p == Replicate() and o != Replicate() else p
+                for p, o in zip(pl, po)]
+
+    la = a.redistribute(mesh, pa).to_local(grad_placements=grad_pl(pa))
+    lb = b.redistribute(mesh, pb).to_local(grad_placements=grad_pl(pb))
+    size = dict(zip(ta, a.shape))
+    size.update(zip(tb, b.shape))
+    shape = torch.Size(size[c] for c in out_t)
+    return DTensor.from_local(fn(eq, la, lb, *args), mesh, po, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def _contiguous(shape):
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
 def dot(eq, a, b, dtype=torch.float32):
     """``einsum(eq, a, b)`` accumulated in float32 and returned in
     ``dtype`` (the reference's ``einsum(..., preferred_element_type=
-    float32).astype(dtype)``), the operands taken as given."""
+    float32).astype(dtype)``), the operands taken as given.  DTensors
+    go through :func:`_sharded_product`."""
+    if is_dtensor(a) or is_dtensor(b):
+        return _sharded_product(dot, eq, a, b, dtype)
     if a.dtype == b.dtype == torch.float32:
         return torch.einsum(eq, a, b).to(dtype)
     return _NarrowDot.apply(eq, a, b, dtype, None)
@@ -118,7 +251,10 @@ def mm(eq, a, b, dtype=torch.float32):
     """:func:`dot` of ``cast(a)`` and ``cast(b)``: the reference's
     ``einsum(cast(a), cast(b), preferred_element_type=float32)
     .astype(dtype)``, with the casts inside the product (no narrow copy
-    of a weight is kept for the backward)."""
+    of a weight is kept for the backward).  DTensors go through
+    :func:`_sharded_product`."""
+    if is_dtensor(a) or is_dtensor(b):
+        return _sharded_product(mm, eq, a, b, dtype)
     cd = compute_dtype()
     if cd == a.dtype == b.dtype == torch.float32:
         return torch.einsum(eq, a, b).to(dtype)
@@ -184,6 +320,44 @@ def _largest_divisor(n, at_most):
     return c
 
 
+def _attention_placements(q, k):
+    """Per mesh dim, the placement the attention runs its local scan
+    under: the batch axis (0) split where q's or k's is, else the head
+    axis (2) where k's is (q's local heads then use exactly the local KV
+    heads: H/Hkv = n_rep on every shard); everything else is gathered
+    (sequence and head_dim, and any partial sum).  A decode cache is
+    never gathered over a mesh axis that splits its batch or heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pq, pk in zip(q.placements, k.placements):
+        if Shard(0) in (pq, pk):
+            out.append(Shard(0))
+        elif pk == Shard(2):
+            out.append(pk)
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _sharded_scan(q, k, v, q_pos, kv_pos, **kw):
+    """:func:`_online_softmax_scan` under a mesh.  Attention is
+    independent across batch rows and heads, so q, k and v are
+    redistributed explicitly to :func:`_attention_placements` and each
+    rank runs the scan on its local rows and heads as plain tensors; the
+    output is placed as q then is.  (Through DTensor's rules the
+    einsums' reshapes, which merge the batch and head axes, would gather
+    every KV chunk over the head-sharded mesh axis.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    q, k, v = (t if is_dtensor(t) else DTensor.from_local(t, mesh, rep)
+               for t in (q, k, v))
+    pl = _attention_placements(q, k)
+    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    out = _online_softmax_scan(q, k, v, q_pos, kv_pos, **kw)
+    return DTensor.from_local(out, mesh, pl)
+
+
 def _online_softmax_scan(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk,
                          n_rep=1):
     """Chunked attention with a running (max, sum, acc) over KV chunks.
@@ -192,6 +366,9 @@ def _online_softmax_scan(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk,
     q_pos: (S,), kv_pos: (Skv,) absolute positions for the masks.
     Returns (B, S, H, hd) in q's dtype.  A fully masked row gives 0.
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return _sharded_scan(q, k, v, q_pos, kv_pos, causal=causal,
+                             window=window, kv_chunk=kv_chunk, n_rep=n_rep)
     B, S, H, hd = q.shape
     Skv = k.shape[1]
     kv_chunk = _largest_divisor(Skv, kv_chunk)
@@ -265,8 +442,8 @@ def attention(params, x, *, cfg, positions, kv_cache=None, cache_pos=None,
     new_cache = None
     if kv_cache is not None:
         pos = int(cache_pos)
-        kv_cache["k"][:, pos:pos + 1] = xk
-        kv_cache["v"][:, pos:pos + 1] = xv
+        store_seq(kv_cache["k"], pos, xk)
+        store_seq(kv_cache["v"], pos, xv)
         new_cache = kv_cache
         Smax = kv_cache["k"].shape[1]
         q_pos = torch.full((1,), pos, device=x.device)
@@ -318,6 +495,20 @@ def top_k(x, k):
     promise an order among ties)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _rows_only(t):
+    """Under a mesh, ``t`` split along axis 0 at most (the groups) and
+    contiguous: the combine merges the expert and capacity axes, which
+    DTensor's reshape cannot do on a split or strided local tensor, so
+    they are gathered explicitly first."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    t = t.redistribute(t.device_mesh, [
+        p if type(p) is Shard and p.dim == 0 else Replicate()
+        for p in t.placements])
+    return t.contiguous()
 
 
 def moe(params, x, cfg, group_size: int = 4096):
@@ -378,9 +569,10 @@ def moe(params, x, cfg, group_size: int = 4096):
     # add exact zeros at a valid index
     w_tok = torch.gather(gate.transpose(1, 2), 2, sel_idx)
     ye = ye * torch.where(sel_valid, w_tok, 0.0)[..., None]
-    idx = torch.where(sel_valid, sel_idx, 0).reshape(Gn, E * cap)
+    idx = _rows_only(torch.where(sel_valid, sel_idx, 0)).reshape(
+        Gn, E * cap)
     cdt = _MOE_COMBINE_DTYPE[0]
     out = torch.zeros((Gn, Sg, d), dtype=cdt, device=x.device)
     out = out.scatter_add(1, idx[..., None].expand(Gn, E * cap, d),
-                          ye.reshape(Gn, E * cap, d).to(cdt))
+                          _rows_only(ye).reshape(Gn, E * cap, d).to(cdt))
     return out.reshape(B, S, d).to(x.dtype), aux

@@ -238,13 +238,22 @@ def _spec_map(fn, tree):
             for k, v in tree.items()}
 
 
-def init_params(cfg, *, seed: int = 0, device=None) -> LM:
+def init_params(cfg, *, seed: int = 0, device=None, mesh=None,
+                style: str = "contraction") -> LM:
     """Random parameters (the reference's scales) on ``device`` (default
     ``cuda``), drawn leaf by leaf in sorted-path order from a generator
-    seeded with ``seed``."""
+    seeded with ``seed``.
+
+    Under ``mesh`` (a ``DeviceMesh``) the whole tensors are drawn as
+    without one, then each rank keeps its shard by
+    :func:`repro_torch.train.sharding.param_specs` (``style``), so the
+    weights equal the unsharded ones whatever the mesh: the port's
+    counterpart of the reference's ``_ensure_sharding_invariant_rng``."""
     dev = dv.resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":      # meta tensors (the dry-run) hold no draws
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     shapes = param_shapes(cfg)
     drawn = {}
     for path, (shape, kind, scale) in tree_leaves(shapes):
@@ -257,7 +266,12 @@ def init_params(cfg, *, seed: int = 0, device=None) -> LM:
         else:
             t = torch.full(shape, scale, dtype=torch.float32, device=dev)
         drawn[path] = t
-    return LM(cfg, tree_unflatten(shapes, drawn))
+    tree = tree_unflatten(shapes, drawn)
+    if mesh is not None:
+        from repro_torch.train import sharding as SH
+        tree = SH.distribute(tree, SH.param_specs(cfg, tree, mesh, style),
+                             mesh)
+    return LM(cfg, tree)
 
 
 def abstract_params(cfg) -> Dict[str, Any]:
@@ -270,10 +284,15 @@ def abstract_params(cfg) -> Dict[str, Any]:
 # decode caches
 # --------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_seq: int, *, device=None) -> Dict[str, Any]:
+def init_cache(cfg, batch: int, max_seq: int, *, device=None,
+               mesh=None) -> Dict[str, Any]:
     """Zeroed decode caches on ``device`` (default ``cuda``; ``"meta"``
     gives the shapes alone).  k/v and conv states in the compute dtype,
-    SSM states in float32."""
+    SSM states in float32.  Under ``mesh`` each rank allocates its own
+    shard of every leaf, placed by
+    :func:`repro_torch.train.sharding.cache_specs`."""
+    if mesh is not None:
+        return _placed_cache(cfg, batch, max_seq, dv.resolve(device), mesh)
     dev = dv.resolve(device)
     cd = compute_dtype()
     Hkv, hd, Ld = cfg.n_kv_heads, cfg.hd, cfg.n_layers
@@ -319,6 +338,29 @@ def init_cache(cfg, batch: int, max_seq: int, *, device=None) -> Dict[str, Any]:
     raise ValueError(cfg.family)
 
 
+def _placed_cache(cfg, batch, max_seq, dev, mesh):
+    from torch.distributed import tensor as dt
+    from repro_torch.train import sharding as SH
+    SH.check_mesh(mesh, dev)
+    shapes = init_cache(cfg, batch, max_seq, device="meta")
+    specs = SH.cache_specs(cfg, batch, mesh, shapes)
+
+    def leaf(path, m):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        fill = -1 if path[-1] == "pos" else 0
+        pl = SH.placements(mesh, spec)
+        if dev.type == "meta":
+            return dt.distribute_tensor(torch.full(
+                m.shape, fill, dtype=m.dtype, device=dev), mesh, pl)
+        return dt.full(m.shape, fill, dtype=m.dtype, device_mesh=mesh,
+                       placements=pl)
+
+    return tree_unflatten(shapes, {p: leaf(p, m)
+                                   for p, m in tree_leaves(shapes)})
+
+
 def _index(tree, i):
     """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
     if tree is None:
@@ -359,12 +401,12 @@ def _swa_decode_attn(p, cfg, x, cache_k, cache_v, cache_slot_pos, cache_pos):
     xk = L.rope(xk, pos_b, cfg.rope_theta)
 
     slot = pos % W
-    cache_k[:, slot:slot + 1] = xk
-    cache_v[:, slot:slot + 1] = xv
-    cache_slot_pos[slot] = pos
+    L.store_seq(cache_k, slot, xk)
+    L.store_seq(cache_v, slot, xv)
+    cache_slot_pos[slot:slot + 1].fill_(pos)
 
-    k_rep = L.repeat_kv(cache_k, H // Hkv)
-    v_rep = L.repeat_kv(cache_v, H // Hkv)
+    k_rep = L.repeat_kv(L.gather_seq(cache_k), H // Hkv)
+    v_rep = L.repeat_kv(L.gather_seq(cache_v), H // Hkv)
     logits = dot("bsnh,bwnh->bsnw", xq, k_rep) / (hd ** 0.5)
     valid = (cache_slot_pos >= 0) & (cache_slot_pos <= pos) \
         & (cache_slot_pos > pos - cfg.swa_window)
@@ -385,14 +427,19 @@ def _write_prefill_cache(cache, kv):
     if "pos" in cache:  # ring buffer (SWA): keep the last min(S, W) tokens
         W = cache["k"].shape[1]
         keep = min(S_, W)
-        pos = torch.arange(S_ - keep, S_, device=cache["k"].device)
-        slots = pos % W
-        cache["k"][:, slots] = kv["k"][:, -keep:]
-        cache["v"][:, slots] = kv["v"][:, -keep:]
-        cache["pos"][slots] = pos.to(cache["pos"].dtype)
+        # positions S_-keep .. S_-1 land in slots p % W: at most two runs
+        p0 = S_ - keep
+        while p0 < S_:
+            slot = p0 % W
+            n = min(S_ - p0, W - slot)
+            for name in ("k", "v"):
+                L.store_seq(cache[name], slot, kv[name][:, p0:p0 + n])
+            cache["pos"][slot:slot + n].copy_(torch.arange(
+                p0, p0 + n, dtype=torch.int32, device=kv["k"].device))
+            p0 += n
         return
-    cache["k"][:, :S_] = kv["k"]
-    cache["v"][:, :S_] = kv["v"]
+    L.store_seq(cache["k"], 0, kv["k"])
+    L.store_seq(cache["v"], 0, kv["v"])
 
 
 def _self_attention(p, h_in, cfg, positions, cache, cache_pos, kv_chunk):
@@ -468,11 +515,13 @@ def _run(fn, remat, *args):
 # --------------------------------------------------------------------------
 
 def forward(params, cfg, x, positions, caches=None, cache_pos=None,
-            enc_out=None, remat=False, kv_chunk=512):
+            enc_out=None, remat=False, kv_chunk=512, act_spec=None):
     """Run the layer stack.  x: (B, S, d) hidden states (embedded).
 
     caches: the stacked decode caches of :func:`init_cache` (None in
     training), written in place by prefill (``cache_pos`` 0) and decode.
+    ``act_spec``: under a mesh, the residual stream is pinned to it at
+    every layer boundary (:func:`repro_torch.models.layers.constrain`).
     Returns (hidden, caches, aux).
     """
     params = tree_of(params)
@@ -485,6 +534,7 @@ def forward(params, cfg, x, positions, caches=None, cache_pos=None,
             def body(p, x_, c_=_index(c, i)):
                 return _dense_block(p, x_, cfg, positions, c_, cache_pos,
                                     kv_chunk)
+            x = L.constrain(x, act_spec)
             x, a = _run(body, remat, _index(params["layers"], i), x)
             aux = aux + a
         return x, caches, aux
@@ -498,9 +548,11 @@ def forward(params, cfg, x, positions, caches=None, cache_pos=None,
         for i in range(n_run):
             def body(p, x_, c_=_index(sc, i)):
                 return _ssm_block(p, x_, cfg, c_)
+            x = L.constrain(x, act_spec)
             x = _run(body, remat, _index(params["layers"], i), x)
             if period and (i + 1) % period == 0:
                 # the weight-shared attention block after each group
+                x = L.constrain(x, act_spec)
                 x, a = _dense_block(params["shared_attn"], x, cfg, positions,
                                     _index(ac, i // period), cache_pos,
                                     kv_chunk)
@@ -516,13 +568,14 @@ def forward(params, cfg, x, positions, caches=None, cache_pos=None,
             def body(p, x_, c_=_index(c, i), cross_=cross):
                 return _encdec_block(p, x_, cfg, positions, c_, cache_pos,
                                      kv_chunk, enc_out, cross_)
+            x = L.constrain(x, act_spec)
             x = _run(body, remat, _index(params["layers"], i), x)
         return x, caches, aux
 
     raise ValueError(fam)
 
 
-def encode(params, cfg, enc_in, remat=False, kv_chunk=512):
+def encode(params, cfg, enc_in, remat=False, kv_chunk=512, act_spec=None):
     """Encoder stack (whisper): enc_in (B, Senc, d) stub frame embeddings."""
     params = tree_of(params)
     positions = torch.arange(enc_in.shape[1], device=enc_in.device)
@@ -536,6 +589,7 @@ def encode(params, cfg, enc_in, remat=False, kv_chunk=512):
 
     x = enc_in
     for i in range(cfg.n_enc_layers):
+        x = L.constrain(x, act_spec)
         x = _run(body, remat, _index(params["enc_layers"], i), x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 

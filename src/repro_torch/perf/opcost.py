@@ -27,6 +27,12 @@ XLA) with no walker:
   tree's size; the counter does not charge those reads) and the launch's
   shapes elsewhere (a route's compares at its ply bound).
 
+Under a ``DeviceMesh`` the counter sees each DTensor op after DTensor
+has turned it into this rank's local ops and collectives (it declines
+the DTensor-level call), so it counts one rank's work; the c10d
+functional collectives DTensor issues are also summed by kind
+(:data:`COLLECTIVES`, their result bytes, as ``hlocost`` charges them).
+
 Use it as a context manager: ``with OpCounter() as c: fn(); c.flops``.
 """
 from __future__ import annotations
@@ -40,7 +46,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.kernels import _build
 
 __all__ = ["OpCounter", "count", "MATMUL_OPS", "GATHER_OPS", "SCATTER_OPS",
-           "FREE_OPS"]
+           "COLLECTIVES", "FREE_OPS"]
 
 #: Matmul-class ops: ``2 * prod(output) * prod(contracted)`` flops each.
 MATMUL_OPS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv",
@@ -51,11 +57,27 @@ GATHER_OPS = {"gather", "index_select", "index", "take", "embedding",
 #: In-place ops that read and write only their update operand.
 SCATTER_OPS = {"index_put_", "index_add_", "index_copy_", "scatter_",
                "scatter_add_", "scatter_reduce_", "masked_scatter_"}
+#: The c10d functional collectives by kind.
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
 #: Allocations and metadata: no kernel reads or writes data.
 FREE_OPS = {"empty", "empty_like", "empty_strided", "new_empty",
             "new_empty_strided", "_local_scalar_dense", "lift_fresh",
             "resize_", "set_", "sym_size", "sym_stride", "sym_numel",
-            "is_nonzero", "equal", "record_stream", "_unsafe_view"}
+            "is_nonzero", "equal", "record_stream", "_unsafe_view",
+            "wait_tensor"}
+
+
+from torch._subclasses.fake_tensor import FakeTensor as _FAKE
+
+try:
+    from torch.distributed.tensor import DTensor as _DTENSOR
+except ImportError:          # a build without torch.distributed
+    _DTENSOR = None
 
 
 def _nbytes(t) -> int:
@@ -83,7 +105,8 @@ class OpCounter(TorchDispatchMode):
     """Counts flops and bytes of every aten op and port kernel launched
     while it is entered.  ``flops``, ``bytes``; ``by_op[name] = [calls,
     flops, bytes]`` (a kernel under its launch-count name); ``devices``:
-    the device types of the tensors seen."""
+    the device types of the tensors seen; ``collectives[kind]``: the
+    result bytes of the collectives issued."""
 
     def __init__(self):
         super().__init__()
@@ -91,6 +114,7 @@ class OpCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.by_op = defaultdict(lambda: [0, 0.0, 0.0])
         self.devices: set = set()
+        self.collectives = defaultdict(float)
         self._paused = False
 
     def _charge(self, name, flops, nbytes):
@@ -119,6 +143,11 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            # let DTensor turn the op into local ops and collectives,
+            # which come back here
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._paused:
@@ -128,7 +157,12 @@ class OpCounter(TorchDispatchMode):
                if isinstance(a, torch.Tensor)]
         outs = [o for o in tree_flatten(out)[0]
                 if isinstance(o, torch.Tensor)]
+        if any(isinstance(t, _FAKE) for t in ins + outs):
+            return out   # DTensor's shape propagation, not the rank's work
         self.devices.update(t.device.type for t in ins + outs)
+        if name in COLLECTIVES:
+            self.collectives[COLLECTIVES[name]] += sum(
+                _nbytes(o) for o in outs)
         if name in FREE_OPS or _is_view(func):
             return out
         flops = 0.0

@@ -13,8 +13,9 @@ The counterpart of the reference's ``repro.perf.profile``:
 * :func:`device_times` -- the device time of one call, by kernel name.
 
 Peaks are NVIDIA's data sheet for the H100 SXM (dense, no sparsity) at
-its full 700 W: 3.35 TB/s of HBM and 67 TFLOP/s of float32 outside the
-tensor cores.  A card set below 700 W (``nvidia-smi``'s ``power.limit``)
+its full 700 W: 3.35 TB/s of HBM, 67 TFLOP/s of float32 outside the
+tensor cores, 989 TFLOP/s of dense bf16 on the tensor cores and 450 GB/s
+of NVLink 4 a direction (the dry-run's roofline terms).  A card set below 700 W (``nvidia-smi``'s ``power.limit``)
 runs slower; state its limit beside any share of these.
 """
 from __future__ import annotations
@@ -30,10 +31,12 @@ from repro_torch.perf import opcost
 
 __all__ = ["trace", "op_costs", "profile_ops", "write_report",
            "device_times", "device_events", "bound", "HBM_BYTES_PER_S",
-           "FP32_FLOPS"]
+           "FP32_FLOPS", "BF16_FLOPS", "NVLINK_BYTES_PER_S"]
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16
+NVLINK_BYTES_PER_S = 450e9     # H100 SXM data sheet, NVLink 4 a direction
 
 _TRACES = itertools.count()
 

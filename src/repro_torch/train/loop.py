@@ -1,5 +1,5 @@
-"""Fault-tolerant LM training loop (the reference's ``train/loop.py``)
-on one device.
+"""Fault-tolerant LM training loop (the reference's ``train/loop.py``),
+on one device or over a ``DeviceMesh``.
 
 * auto-resume from the latest checkpoint (atomic LATEST pointer), with
   restore templates from :func:`repro_torch.train.steps.abstract_state`;
@@ -10,7 +10,16 @@ on one device.
 * deterministic skip-ahead (the stream is indexed by step);
 * the NaN-step skip inside the step (see steps.py);
 * straggler and loss-spike flags from the QO step-time and loss tables:
-  the paper's observer watching the trainer itself.
+  the paper's observer watching the trainer itself;
+* the publish boundary hands a :class:`Publication`: a read-only handle
+  on the live parameters that raises once a later step has written them
+  (the reference donates its parameters, so a held publication raises
+  there too: "Array has been deleted").
+
+Under a mesh (``Trainer(..., mesh=)``) the step is the sharded one of
+:func:`repro_torch.train.steps.build_train_step`, checkpoints restore
+into DTensor templates placed by the sharding specs, and rank 0 writes
+the files (every rank gathers the leaves it saves).
 """
 from __future__ import annotations
 
@@ -27,9 +36,10 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.train import monitor as MON
+from repro_torch.train import sharding as SH
 from repro_torch.train import steps as ST
 
-__all__ = ["LoopConfig", "Trainer"]
+__all__ = ["LoopConfig", "Trainer", "Publication", "PublicationOverwritten"]
 
 
 @dataclass
@@ -45,24 +55,83 @@ class LoopConfig:
     seed: int = 0
 
 
+class PublicationOverwritten(RuntimeError):
+    """A held :class:`Publication` was read after a later train step
+    wrote its parameters in place (ROADMAP C16)."""
+
+
+class Publication:
+    """The parameters published at ``step``: a read-only handle on the
+    trainer's live parameters, valid until the next train step writes
+    them in place.  Each read (:meth:`tree`, :meth:`copy`) first
+    compares every leaf's version counter with
+    its value at publish time and raises :class:`PublicationOverwritten`,
+    naming the step that overwrote them, once one has moved: a held
+    publication never silently reads later weights.  A consumer that
+    keeps the weights copies them inside ``publish_fn``."""
+
+    def __init__(self, step: int, params):
+        self.step = step
+        self._params = params
+        self._versions = [self._version(t) for _, t in
+                          T.tree_leaves(T.tree_of(params))]
+
+    @staticmethod
+    def _version(t):
+        from repro_torch.train.sharding import local_shard
+        return local_shard(t)._version
+
+    def _check(self):
+        now = [self._version(t) for _, t in
+               T.tree_leaves(T.tree_of(self._params))]
+        if now != self._versions:
+            raise PublicationOverwritten(
+                f"ROADMAP C16: the parameters published at step {self.step} "
+                f"were overwritten in place by train step {self.step + 1}; "
+                f"copy them inside publish_fn to keep them")
+
+    def tree(self):
+        """The live parameter dict (valid until the next step)."""
+        self._check()
+        return T.tree_of(self._params)
+
+    def copy(self):
+        """A detached copy of the parameters (an :class:`LM`, DTensors
+        kept placed) that later steps do not touch."""
+        self._check()
+        tree = T.tree_map(lambda t: t.detach().clone(),
+                          T.tree_of(self._params))
+        return T.LM(self._params.cfg, tree) if isinstance(
+            self._params, T.LM) else tree
+
+
 class Trainer:
     def __init__(self, cfg, shape, data, loop_cfg: LoopConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None, *, device=None,
                  mesh=None):
-        ST._refuse_sharding(mesh)
         self.cfg, self.shape = cfg, shape
         self.dev = dv.resolve(device)
+        self.mesh = mesh
         self.data = data
         self.lc = loop_cfg
         self.opt_cfg = opt_cfg or adamw.AdamWConfig(
             total_steps=loop_cfg.total_steps)
-        self.ckpt = Checkpointer(loop_cfg.ckpt_dir)
+        writer = True
+        if mesh is not None:
+            import torch.distributed as dist
+            writer = dist.get_rank() == 0
+        self.ckpt = Checkpointer(loop_cfg.ckpt_dir, write=writer)
         self._preempted = False
         self.step_fn = ST.build_train_step(
             cfg, shape, self.opt_cfg, microbatch=loop_cfg.microbatch,
             remat=loop_cfg.remat, kv_chunk=loop_cfg.kv_chunk,
-            device=self.dev)
+            device=self.dev, mesh=mesh)
         self.pshapes, self.oshapes = ST.abstract_state(cfg, self.opt_cfg)
+        if mesh is not None:   # restore templates: meta DTensors
+            pspecs = SH.param_specs(cfg, self.pshapes, mesh)
+            self.pshapes = SH.distribute(self.pshapes, pspecs, mesh)
+            self.oshapes = SH.distribute(self.oshapes, SH.opt_specs(pspecs),
+                                         mesh)
 
     # -- state ------------------------------------------------------------
 
@@ -72,13 +141,15 @@ class Trainer:
         start = self.ckpt.latest_step()
         mon = MON.init_monitor(device=self.dev)
         if start is not None:
-            host = self.ckpt.restore(
+            placed = self.ckpt.restore(
                 start, {"params": self.pshapes, "opt": self.oshapes})
-            devs = T.tree_map(lambda _: self.dev, host)
-            placed = reshard(host, devs)
+            if self.mesh is None:
+                placed = reshard(placed, T.tree_map(lambda _: self.dev,
+                                                    placed))
             return (T.LM(self.cfg, placed["params"]), placed["opt"], mon,
                     start)
-        params = M.init_params(self.cfg, seed=self.lc.seed, device=self.dev)
+        params = M.init_params(self.cfg, seed=self.lc.seed, device=self.dev,
+                               mesh=self.mesh)
         return params, adamw.init_state(params), mon, 0
 
     # -- preemption -------------------------------------------------------
@@ -102,14 +173,19 @@ class Trainer:
         self.ckpt.save(step, {"params": params.tree(), "opt": opt},
                        blocking=blocking)
         if publish_fn is not None:
-            publish_fn(step, params)
+            publish_fn(step, Publication(step, params))
 
     def run(self, log_fn: Callable[[Dict[str, Any]], None] = print,
             publish_fn: Optional[Callable[[int, Any], None]] = None):
         """Train to ``total_steps``; returns (params, opt, monitor,
-        history).  ``publish_fn(step, params)`` is the LM loop's publish
-        boundary, fired right after every checkpoint save (periodic,
-        preemption and final); its exceptions are not caught here."""
+        history).  ``publish_fn(step, publication)`` is the LM loop's
+        publish boundary, fired right after every checkpoint save
+        (periodic, preemption and final); its exceptions are not caught
+        here.  The :class:`Publication` is a read-only handle on the
+        parameters the trainer goes on updating in place: reading it
+        after the next step raises.  A consumer that wants to keep the
+        weights copies them inside ``publish_fn``
+        (``publication.copy()``)."""
         old = self._install_signals()
         try:
             return self._run(log_fn, publish_fn)

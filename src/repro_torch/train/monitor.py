@@ -12,9 +12,10 @@ however long training runs.
 * straggler detection: a step time above the p99 of the step-time table;
 * loss-spike detection: a loss above mean + 6 sigma of the loss table.
 
-Both need ``min_n`` observations first.  The reference's
-``monitor_specs`` (a JAX ``PartitionSpec`` read only by the LM train
-step) is not ported: it waits for the LM scaffolding (ROADMAP A14).
+Both need ``min_n`` observations first.  :func:`monitor_specs` places
+every table replicated under a mesh: each rank holds the tables whole as
+plain tensors and folds the same replicated scalars into them, so the
+kernel never sees a DTensor.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from repro_torch import device as dv
 from repro_torch.core import qo as qo_lib
 from repro_torch.core import sketch, stats
 
-__all__ = ["BINS", "SIGNALS", "init_monitor", "observe", "is_straggler",
-           "loss_spike", "summaries"]
+__all__ = ["BINS", "SIGNALS", "init_monitor", "monitor_specs", "observe",
+           "is_straggler", "loss_spike", "summaries"]
 
 BINS = 128
 SIGNALS = ("loss", "grad_norm", "step_time")
@@ -42,6 +43,18 @@ def init_monitor(*, device=None) -> Dict[str, qo_lib.QOTable]:
                                      device=dev),
             "step_time": qo_lib.init(BINS, radius=0.05, origin=1.0,
                                      device=dev)}
+
+
+def monitor_specs():
+    """Monitor tables are tiny: replicate (a
+    :class:`repro_torch.train.sharding.Spec` of no axes a leaf)."""
+    from repro_torch.train.sharding import Spec
+
+    def rep(tree):
+        if isinstance(tree, dict):
+            return {k: rep(v) for k, v in tree.items()}
+        return Spec()
+    return rep(init_monitor(device="meta"))
 
 
 def observe(mon, *, loss=None, grad_norm=None, step_time=None):

@@ -1,7 +1,25 @@
 """Multi-device training and serving over ``torch.distributed`` (the
-forest half of the reference's ``train/sharding.py``, DESIGN.md §4.1 and
-§5): data-parallel stream training, the tree-axis sharded forest and
-request-sharded serving.
+reference's ``train/sharding.py``): the LM's sharding specs (DESIGN.md
+§7), then the forest's data-parallel stream training, tree-axis sharded
+forest and request-sharded serving (DESIGN.md §4.1 and §5).
+
+The LM half.  Strategy: TP over the "model" mesh axis and FSDP over the
+data axes ("pod", "data").  The rules are the reference's, rule by rule,
+by leaf name and shape over the parameter tree of
+:func:`repro_torch.models.transformer.param_shapes`; every rule falls back
+to replication where a dimension does not divide its mesh axes.  A spec
+is a :class:`Spec`: per tensor dimension None, one mesh-axis name or a
+tuple of names (major first), printed like the reference's
+``PartitionSpec`` so the two compare exactly.  :func:`to_shardings` turns
+specs into ``torch.distributed.tensor`` placements on a ``DeviceMesh``
+and :func:`distribute` places tensors by them.  A dimension split over
+two mesh axes in an order other than the mesh's (``("model", "data")``
+on a ("data", "model") mesh: the "gather" style's 2-D weights) is laid
+out as JAX lays it, the first name major, through ``_StridedShard``.
+Every function takes a ``DeviceMesh`` or a :class:`MeshShape` (names
+and sizes alone, the reference's ``AbstractMesh``).
+
+The forest half.
 
 The training stream is sharded over D shards.  Every shard holds a
 replicated copy of the forest (topology, quantization grids, merged
@@ -45,7 +63,7 @@ each serving its rows from a replicated snapshot with no collective.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -57,10 +75,306 @@ from repro_torch.core import serve as sv
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
 
-__all__ = ["DataParallelForest", "init_data_parallel", "shard_rng_state",
+__all__ = ["Spec", "MeshShape", "mesh_axes", "mesh_sizes", "fsdp_size",
+           "param_specs",
+           "batch_specs", "cache_specs", "opt_specs", "placements",
+           "to_shardings", "distribute", "check_mesh", "local_shard", "local",
+           "DataParallelForest", "init_data_parallel", "shard_rng_state",
            "build_data_parallel_reference", "build_data_parallel_forest",
            "forest_state_specs", "ShardedForest", "build_sharded_forest",
            "build_sharded_serving"]
+
+
+# --------------------------------------------------------------------------
+# The LM's sharding specs (DESIGN.md §7)
+# --------------------------------------------------------------------------
+
+class Spec(tuple):
+    """The reference's ``PartitionSpec``: per tensor dimension None, a
+    mesh-axis name or a tuple of names (the first major).  A one-name
+    tuple is stored as the name, as JAX normalises it."""
+
+    def __new__(cls, *entries):
+        norm = []
+        for e in entries:
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                e = e[0] if len(e) == 1 else (e or None)
+            norm.append(e)
+        return super().__new__(cls, norm)
+
+    def __repr__(self):
+        return f"PartitionSpec({', '.join(map(repr, self))})"
+
+
+class MeshShape(NamedTuple):
+    """A mesh's axis names and sizes without devices (the reference's
+    ``AbstractMesh``): enough for every spec rule."""
+    mesh_dim_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or a :class:`MeshShape`."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def mesh_axes(mesh) -> Tuple[Tuple[str, ...], str]:
+    """Returns (fsdp_axes, tp_axis)."""
+    tp = "model"
+    return tuple(n for n in mesh.mesh_dim_names if n != tp), tp
+
+
+def _div(n: int, size: int) -> bool:
+    return n > 0 and n % size == 0
+
+
+def fsdp_size(mesh) -> int:
+    """The product of the fsdp axes' sizes."""
+    sizes = mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in mesh_axes(mesh)[0])
+
+
+def _map_paths(fn, tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def param_specs(cfg, params_shapes, mesh, style: str = "contraction"):
+    """Tree of :class:`Spec` matching the parameter tree (leaves with a
+    ``.shape``: :func:`repro_torch.models.transformer.abstract_params`).
+
+    style:
+      "contraction" (baseline): FSDP shards the contraction (d_model) dim
+        of weights;
+      "gather": FSDP co-shards the weight's OUTPUT dim with TP (2-D
+        sharding), so the weight shards are all-gathered (ZeRO-3).
+    Any other style behaves as "contraction", as in the reference."""
+    fsdp, tp = mesh_axes(mesh)
+    tp_n = mesh_sizes(mesh)[tp]
+    fsdp_n = fsdp_size(mesh)
+    gather = style == "gather"
+
+    def fs(dim):  # fsdp-shard a dimension if it divides
+        return fsdp if _div(dim, fsdp_n) else None
+
+    def tps(dim):
+        return tp if _div(dim, tp_n) else None
+
+    def tp_fs(dim):
+        """2-D shard over (tp, fsdp...) when divisible, else best effort."""
+        if _div(dim, tp_n * fsdp_n):
+            return (tp,) + fsdp
+        return tps(dim)
+
+    def rule(keys, leaf):
+        name = keys[-1] if keys else ""
+        shp = tuple(leaf.shape)
+        nd = len(shp)
+        # strip the stacked-layer leading axis for rule matching
+        core = shp[1:] if (keys and keys[0] in ("layers", "enc_layers")
+                           and nd >= 1) else shp
+
+        def spec(*core_spec):
+            return Spec(*((None,) * (nd - len(core_spec))), *core_spec)
+
+        if name == "embed":
+            if _div(shp[0], tp_n):
+                return Spec(tp, fs(shp[1]))
+            return Spec(None, tps(shp[1]))
+        if name == "lm_head":
+            if gather:
+                return Spec(None, tp_fs(shp[1]))
+            return Spec(fs(shp[0]), tps(shp[1]))
+        if name in ("wq", "wo"):
+            # (d, H, hd) / (H, hd, d): heads over TP
+            if name == "wq":
+                if gather:  # output dims (H, hd) 2D-sharded -> weight gather
+                    return spec(None, tps(core[1]), fs(core[2]))
+                return spec(fs(core[0]), tps(core[1]), None)
+            return spec(tps(core[0]), None, fs(core[2]))
+        if name in ("wk", "wv"):
+            if gather:
+                return spec(None, tps(core[1]), fs(core[2]))
+            return spec(fs(core[0]), tps(core[1]), None)
+        if name in ("w_gate", "w_up", "w_down", "router"):
+            if len(core) == 3:  # MoE (E, d, f) / (E, f, d)
+                E = core[0]
+                if gather:
+                    # contraction dim never data-sharded; FSDP rides the
+                    # output dim (core[2])
+                    if _div(E, tp_n):  # EP: experts over tp
+                        return spec(tp, None, fs(core[2]))
+                    if name == "w_down":  # (E, f, d): f row-parallel
+                        return spec(None, tps(core[1]), fs(core[2]))
+                    return spec(None, None, tp_fs(core[2]))  # (E, d, f)
+                if _div(E, tp_n):  # EP
+                    return spec(tp, fs(core[1]) if name != "w_down" else None,
+                                None)
+                if name == "w_down":
+                    return spec(None, tps(core[1]), fs(core[2]))
+                return spec(None, fs(core[1]), tps(core[2]))
+            if name == "router":
+                return spec(fs(core[0]) if not gather else None, None)
+            if name == "w_down":
+                return spec(tps(core[0]), fs(core[1]))
+            if gather:
+                return spec(None, tp_fs(core[1]))
+            return spec(fs(core[0]), tps(core[1]))
+        if name in ("in_proj", "in_z", "in_x"):  # mamba1 (d, 2di); mamba2
+            if gather:
+                return spec(None, tp_fs(core[1]))
+            return spec(fs(core[0]), tps(core[1]))
+        if name in ("in_B", "in_C", "in_dt", "x_proj"):
+            return spec(None if gather else fs(core[0]), None)
+        if name == "dt_proj":  # (dt_rank, di)
+            return spec(None, tps(core[1]))
+        if name == "out_proj":  # (di, d)
+            return spec(tps(core[0]), fs(core[1]))
+        if name in ("A_log", "D", "dt_bias") and len(core) >= 1:
+            return spec(*([tps(core[0])] + [None] * (len(core) - 1)))
+        if name in ("conv_w", "conv_x"):
+            return spec(None, tps(core[1]))
+        if name in ("conv_B", "conv_C"):
+            return spec(None, None)
+        if name == "norm_scale":
+            return spec(tps(core[0]))
+        # norms, biases, small tables: replicate
+        return Spec(*([None] * nd))
+
+    return _map_paths(rule, params_shapes)
+
+
+def batch_specs(cfg, shape_kind: str, global_batch: int, mesh):
+    """``field(name) -> Spec`` for the data batches by field name."""
+    fsdp, _ = mesh_axes(mesh)
+    bspec = fsdp if _div(global_batch, fsdp_size(mesh)) else None
+
+    def field(name):
+        if name in ("tokens", "labels", "loss_mask"):
+            return Spec(bspec, None)
+        if name in ("embeds", "enc_in"):
+            return Spec(bspec, None, None)
+        if name == "token":     # decode: (B,) or (B, d)
+            return Spec(bspec)
+        raise KeyError(name)
+
+    return field
+
+
+def cache_specs(cfg, batch: int, mesh, cache_shapes):
+    """Specs for the decode-cache tree (stacked layer leading axis):
+    batch over the fsdp axes; k/v heads over TP when they divide, else
+    the sequence over TP."""
+    fsdp, tp = mesh_axes(mesh)
+    tp_n = mesh_sizes(mesh)[tp]
+    bspec = fsdp if _div(batch, fsdp_size(mesh)) else None
+
+    def rule(keys, leaf):
+        name = keys[-1]
+        shp = tuple(leaf.shape)
+        if name in ("k", "v"):
+            # (L, B, S, Hkv, hd): heads over TP if divisible, else seq
+            if _div(shp[3], tp_n):
+                return Spec(None, bspec, None, tp, None)
+            if _div(shp[2], tp_n):
+                return Spec(None, bspec, tp, None, None)
+            return Spec(None, bspec, None, None, None)
+        if name == "pos":
+            return Spec(*([None] * len(shp)))
+        if name == "ssm":
+            # mamba1 (L,B,di,N): di over TP; mamba2 (L,B,nh,hd,N): nh
+            rest = [None] * (len(shp) - 3)
+            return Spec(None, bspec, tp if _div(shp[2], tp_n) else None,
+                        *rest)
+        if name == "conv" or (len(keys) >= 2 and keys[-2] == "conv"):
+            ch = shp[-1]
+            return Spec(None, bspec, None, tp if _div(ch, tp_n) else None)
+        if name in ("cross_k", "cross_v"):
+            if _div(shp[3], tp_n):
+                return Spec(None, bspec, None, tp, None)
+            return Spec(None, bspec, None, None, None)
+        return Spec(*([None] * len(shp)))
+
+    return _map_paths(rule, cache_shapes)
+
+
+def opt_specs(pspecs):
+    """AdamW state shards exactly like the parameters (m, v) + a
+    replicated scalar step."""
+    return {"m": pspecs, "v": pspecs, "step": Spec()}
+
+
+def placements(mesh, spec):
+    """The ``torch.distributed.tensor`` placements (one per mesh dim) of
+    a :class:`Spec` on ``mesh``.  Where a tensor dimension is split over
+    several mesh axes, the spec's first name is major, as in JAX: a
+    mesh dim that DTensor splits before a more major one that comes
+    later on the mesh takes a ``_StridedShard`` of the later ones'
+    product."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = mesh_sizes(mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else entry
+        for k, a in enumerate(axes):
+            j = names.index(a)
+            sf = math.prod(sizes[b] for b in axes[:k] if names.index(b) > j)
+            out[j] = Shard(dim) if sf == 1 else \
+                _StridedShard(dim, split_factor=sf)
+    return tuple(out)
+
+
+def to_shardings(mesh, spec_tree):
+    """Tree of :class:`Spec` -> tree of placement tuples on ``mesh``."""
+    if isinstance(spec_tree, dict):
+        return {k: to_shardings(mesh, v) for k, v in spec_tree.items()}
+    return placements(mesh, spec_tree)
+
+
+def distribute(tree, spec_tree, mesh):
+    """Place every tensor of ``tree`` on ``mesh`` by its spec: a plain
+    tensor (the whole value, alike on every rank) is split by
+    ``distribute_tensor`` (each rank keeps its shard, no collective); a
+    DTensor already placed so is kept, one placed otherwise is
+    redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: distribute(v, spec_tree[k], mesh) for k, v in tree.items()}
+    pl = placements(mesh, spec_tree)
+    if isinstance(tree, DTensor):
+        if tuple(tree.placements) == pl:
+            return tree
+        return tree.redistribute(mesh, pl)
+    return distribute_tensor(tree, mesh, pl, src_data_rank=None)
+
+
+def check_mesh(mesh, dev: torch.device) -> None:
+    """Raise unless ``mesh`` holds devices of ``dev``'s type (``meta``
+    tensors, which hold no data, go on any mesh: the dry-run's)."""
+    if dev.type != "meta" and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh holds {mesh.device_type} devices, "
+                         f"expected {dev.type}")
+
+
+def local_shard(t):
+    """A DTensor's local shard; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def local(t):
+    """A replicated DTensor's value as a plain tensor; a plain tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _tmap(fn, *trees):

@@ -37,7 +37,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.train import monitor as MON
 from repro_torch.train import steps as ST
-from repro_torch.train.loop import LoopConfig, Trainer
+from repro_torch.train.loop import (LoopConfig, PublicationOverwritten,
+                                    Trainer)
 
 SMALL = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=128,
              vocab=128, head_dim=16)
@@ -321,6 +322,107 @@ def test_publish_fn_fires_at_each_save(tmp_path):
                (s, float(p.tree()["final_norm"].detach().sum()))))
     assert [s for s, _ in published] == [4, 8, 12, 12]
     assert tr.ckpt.available_steps() == [4, 8, 12]
+
+
+def test_monitor_is_observed_without_with_monitor():
+    """ROADMAP C17: a monitor passed to a step built with
+    ``with_monitor=False`` is observed, as in the reference (where the
+    flag only sets the monitor's shardings): the same tables as the
+    reference's step on the same inputs."""
+    r, t = cfgs()
+    params, state = reference_state(r)
+    batch = RTokenStream(vocab=r.vocab, seq_len=64, global_batch=4,
+                         seed=1).host_batch(0)
+    lm = convert.lm_params_from_numpy(t, jax.tree.map(np.asarray, params),
+                                      device="cpu")
+    tstate = convert.lm_opt_state_from_numpy(jax.tree.map(np.asarray, state),
+                                             device="cpu")
+    step = ST.build_train_step(t, SHAPE, adamw.AdamWConfig(
+        lr=5e-3, warmup_steps=1), kv_chunk=32, with_monitor=False,
+        device="cpu")
+    _, _, _, mon = step(lm, tstate, {k: torch.as_tensor(v) for k, v in
+                                     batch.items()},
+                        MON.init_monitor(device="cpu"))
+    _, _, _, rmon = _reference_step(r, 0)(params, state, batch,
+                                          RMON.init_monitor())
+    got, ref = flat_port(mon), flat(rmon)
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    assert float(MON.summaries(mon)["loss"]["count"]) == 1
+
+
+class ReferenceBatches:
+    """The reference's token stream as the port's Trainer reads it."""
+
+    def __init__(self, stream):
+        self.stream = stream
+
+    def batch(self, step):
+        return {k: torch.as_tensor(v)
+                for k, v in self.stream.host_batch(step).items()}
+
+
+def _start_from_reference(r, directory):
+    """Write the reference's initial parameters and AdamW state as a
+    step-0 checkpoint into ``directory``; return them."""
+    params, state = reference_state(r)
+    RCheckpointer(str(directory)).save(0, {"params": params, "opt": state},
+                                       blocking=True)
+    return params, state
+
+
+def _trainer_from_reference(r, t, directory, steps):
+    _start_from_reference(r, directory)
+    data = ReferenceBatches(RTokenStream(vocab=r.vocab, seq_len=64,
+                                         global_batch=4, seed=1))
+    lc = LoopConfig(total_steps=steps, ckpt_every=4, log_every=4,
+                    ckpt_dir=str(directory), kv_chunk=32)
+    return Trainer(t, SHAPE, data, lc, adamw.AdamWConfig(
+        lr=5e-3, total_steps=8, warmup_steps=4), device="cpu")
+
+
+def test_held_publication_raises_after_a_later_step(tmp_path):
+    """ROADMAP C16: the step-4 publication, held past step 8, raises on
+    read (naming C16 and the step that overwrote it) instead of reading
+    the later weights; the final publication stays readable."""
+    held = {}
+    tr = make_trainer(tmp_path, steps=8, ckpt_every=4)
+    tr.run(log_fn=lambda r: None,
+           publish_fn=lambda s, p: held.setdefault(s, p))
+    assert sorted(held) == [4, 8]
+    for read in (lambda p: p.tree(), lambda p: p.copy()):
+        with pytest.raises(PublicationOverwritten,
+                           match="C16.*step 4.*train step 5"):
+            read(held[4])
+    assert torch.isfinite(held[8].tree()["final_norm"]).all()
+
+
+def test_copied_publication_keeps_its_weights(tmp_path):
+    """ROADMAP C16: a consumer that copies at step 4 keeps the step-4
+    weights: bitwise equal to a rerun stopped at step 4, and within 1e-4
+    of the reference's parameters at step 4 on the same batches."""
+    r, t = cfgs()
+    kept = {}
+    _trainer_from_reference(r, t, tmp_path / "long", 8).run(
+        log_fn=lambda rec: None,
+        publish_fn=lambda s, p: kept.setdefault(s, p.copy()))
+    stopped, _, _, _ = _trainer_from_reference(
+        r, t, tmp_path / "short", 4).run(log_fn=lambda rec: None)
+    got, again = flat_port(kept[4]), flat_port(stopped)
+    assert set(got) == set(again)
+    for k in got:
+        np.testing.assert_array_equal(got[k], again[k], err_msg=k)
+    rtr = RLOOP.Trainer(
+        r, SHAPE, make_local_mesh(1, 1),
+        RTokenStream(vocab=r.vocab, seq_len=64, global_batch=4, seed=1),
+        RLOOP.LoopConfig(total_steps=4, ckpt_every=4, log_every=4,
+                         ckpt_dir=str(tmp_path / "ref"), kv_chunk=32),
+        radamw.AdamWConfig(lr=5e-3, total_steps=8, warmup_steps=4))
+    _start_from_reference(r, tmp_path / "ref")
+    rparams, _, _, _ = rtr.run(log_fn=lambda rec: None)
+    assert_trees_close(kept[4], rparams, 1e-4, "step-4 copy")
 
 
 # --------------------------------------------------------------------------

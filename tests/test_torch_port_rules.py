@@ -33,6 +33,7 @@ from repro_torch.kernels import (ebst, qo_merge, qo_query, qo_query_batched,
                                  sketch_compact)
 from repro_torch import configs as tcfg
 from repro_torch.data import tokens as ttokens
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import model as tmodel
 from repro_torch.train import loop as tloop
@@ -74,7 +75,7 @@ def test_every_port_module_is_scanned():
             "opcost", "profile", "base", "layers", "ssm", "transformer",
             "model", "adamw", "tokens", "steps", "loop", "train",
             "qwen3_8b", "grok_1_314b", "zamba2_2_7b",
-            "whisper_medium"} <= names
+            "whisper_medium", "mesh", "dryrun", "perf", "hlocost"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",
@@ -132,37 +133,60 @@ def test_entry_points_without_device_raise_without_gpu(no_gpu):
 def test_lm_entry_points_without_device_raise_without_gpu(no_gpu):
     cfg = tcfg.reduced(tcfg.get_arch("qwen3-8b"))
     shape = tcfg.ShapeConfig("t", 16, 2, "train")
+    shape_only = tsh.MeshShape(("data", "model"), (1, 1))
     calls = [lambda: tmodel.init_params(cfg),
              lambda: tmodel.init_cache(cfg, 2, 16),
              lambda: tsteps.build_train_step(cfg, shape),
              lambda: tsteps.build_serve_steps(cfg, shape),
              lambda: tloop.Trainer(cfg, shape, None, tloop.LoopConfig()),
              lambda: ttokens.TokenStream(64, 16, 2).batch(0),
-             lambda: tlaunch.main(["--reduced", "--steps", "1"])]
+             lambda: tlaunch.main(["--reduced", "--steps", "1"]),
+             lambda: tmesh.make_local_mesh(),
+             lambda: tsteps.build_train_step(cfg, shape, mesh=shape_only),
+             lambda: tsteps.build_serve_steps(cfg, shape, mesh=shape_only)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU is visible"):
             call()
 
 
-def test_lm_sharding_options_are_refused(tmp_path):
+def test_lm_sharding_options_are_accepted(tmp_path):
     """The LM sharding layer (mesh, seq_parallel, sharding_style, the
-    un-donated step; the launcher's --mesh, --data-par, --model-par) is
-    not ported: ROADMAP A14b."""
+    un-donated step; the launcher's --mesh, --data-par, --model-par)
+    builds: the calls that raised before ROADMAP A14b was ported, with a
+    real ``DeviceMesh`` (a one-rank gloo group) in place of ``"pod"``.
+    The production mesh wants 256 ranks and says so."""
+    import datetime
+    import torch.distributed as dist
     cfg = tcfg.reduced(tcfg.get_arch("qwen3-8b"))
     shape = tcfg.ShapeConfig("t", 16, 2, "train")
-    for kw in (dict(mesh="pod"), dict(seq_parallel=True),
-               dict(sharding_style="fsdp"), dict(donate=False)):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tsteps.build_train_step(cfg, shape, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tsteps.build_serve_steps(cfg, shape, device="cpu", mesh="pod")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tloop.Trainer(cfg, shape, None, tloop.LoopConfig(
-            ckpt_dir=str(tmp_path)), device="cpu", mesh="pod")
-    for argv in (["--mesh", "pod"], ["--data-par", "2"],
-                 ["--model-par", "2"]):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tlaunch.main(["--reduced", "--device", "cpu", *argv])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=30))
+    try:
+        mesh = tmesh.make_local_mesh(4, 2, device="cpu")
+        assert tuple(mesh.shape) == (1, 1)
+        for kw in (dict(mesh=mesh), dict(seq_parallel=True),
+                   dict(sharding_style="fsdp"), dict(donate=False)):
+            assert callable(tsteps.build_train_step(cfg, shape, device="cpu",
+                                                    **kw))
+        prefill, decode, init_cache = tsteps.build_serve_steps(
+            cfg, shape, device="cpu", mesh=mesh)
+        assert init_cache()["attn"]["k"].device_mesh is mesh
+        tr = tloop.Trainer(cfg, shape, None, tloop.LoopConfig(
+            ckpt_dir=str(tmp_path / "trainer")), device="cpu", mesh=mesh)
+        assert tr.mesh is mesh
+        small = ["--reduced", "--device", "cpu", "--steps", "1",
+                 "--d-model", "64", "--layers", "1", "--batch", "2",
+                 "--seq", "16", "--ckpt-every", "1"]
+        for i, argv in enumerate((["--data-par", "2"], ["--model-par", "2"])):
+            tlaunch.main([*small, *argv, "--ckpt-dir",
+                          str(tmp_path / f"launch{i}")])
+            assert (tmp_path / f"launch{i}" / "LATEST").exists()
+        with pytest.raises(RuntimeError, match="256|world size|bigger"):
+            tlaunch.main([*small, "--mesh", "pod", "--ckpt-dir",
+                          str(tmp_path / "pod")])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_state_on_another_device_is_refused():
