@@ -36,8 +36,9 @@ Phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the eight CUDA sources from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once) into ``build/kernels/``, and the
-   dependent-load latency probe ``tools_torch/chase.cu`` beside them;
+   per source, all at once) into ``build/kernels/``, and the latency
+   probes ``tools_torch/chase.cu`` beside them (a dependent load in global
+   and in shared memory, a dependent observe and merge);
 3. per kernel, at the shapes its path gives it (the forests after 8
    learned batches, one table absorbing a 1e6-row stream, the first reduce
    level of the D=4 sync after 8 DP batches): kernel vs its
@@ -61,9 +62,12 @@ Phases:
    query on the QO forest's attempt set and on the sketch forest's
    (C = K = 16), rerun bitwise; both E-BST kernels (insert and query)
    bitwise against their plain versions on a §5.1 stream of 5,000 rows as
-   E-BST and as TE-BST, with duplicates, with NaN / +-inf / -0.0 and past
-   capacity, each rerun bitwise, with the nodes the insert visited beside
-   the probe's dependent-load latency;
+   E-BST and as TE-BST, with duplicates, with NaN / +-inf / -0.0, past
+   capacity and with constant targets, and against the single-thread
+   oracle kernels on sorted and reversed streams (chains) and on 50,000
+   rows (a tree beyond the insert's shared-memory part), each rerun
+   bitwise and each call one launch, timed beside the oracle kernels with
+   the walk's serial latency bound and the new design's bound;
 4. QO forest end to end: 32 batches through ``forest.update`` with the
    launch counts set to 0 just before and read just after; every kernel
    of the path must have run;
@@ -125,12 +129,15 @@ Phases:
 14. the attribute observers (``aos_n1e5``) with the counts reset: for each
     stream and observer the merit and its ratio to the exhaustive best,
     the elements stored, observe and query ms (CUDA events), |thr -
-    thr_E-BST|, and for the E-BSTs the nodes visited and ns a node beside
-    the probe's latency; E-BST within 1e-3 of the exhaustive merit, TE-BST
-    smaller than E-BST, every QO ratio at least 0.9 (0.85 at r = sigma/2,
-    whose reference value on uniform/0/cub is 0.8809); E-BST within 1e-2
-    where the targets' kappa^2 exceeds 100; then the quickstart stream (QO
-    r = 0.01 within 0.1 of E-BST's threshold);
+    thr_E-BST|, and for the E-BSTs the nodes visited and ns a node, the
+    query's ns a node, and both latency bounds (the serial walk's, this
+    design's) from the probes; E-BST within 1e-3 of the exhaustive merit,
+    TE-BST smaller than E-BST, every QO ratio at least 0.9 (0.85 at r =
+    sigma/2, whose reference value on uniform/0/cub is 0.8809); E-BST
+    within 1e-2 where the targets' kappa^2 exceeds 100; E-BST and TE-BST
+    at 10^5 rows of normal/0/lin bitwise equal to the single-thread oracle
+    kernels; then the quickstart stream (QO r = 0.01 within 0.1 of E-BST's
+    threshold);
 15. the multi-target QO (10^6 rows, T = 3, C = 1024) against its CPU copy
     within 1e-4; QO telemetry over 10,000 steps with one planted straggler
     and one planted loss spike, the alerts there and nowhere else;
@@ -1593,9 +1600,9 @@ QWEN3_8B_BLOCK = {
 
 
 def _start_probe():
-    """Start nvcc on ``tools_torch/chase.cu`` (the dependent-load latency
-    probe, not a kernel of the port) beside the port's builds.  Returns a
-    function that waits for it and loads its launcher."""
+    """Start nvcc on ``tools_torch/chase.cu`` (the latency probes, not
+    kernels of the port) beside the port's builds.  Returns a function
+    that waits for it and gives a :class:`_Probes` on a device."""
     from repro_torch.kernels import _build
     out = os.path.join(ROOT, "build", "probes", "chase.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -1604,39 +1611,91 @@ def _start_probe():
          os.path.join(ROOT, "tools_torch", "chase.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
-    def load():
+    def load(dev):
         import ctypes
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on tools_torch/chase.cu:\n{log}")
-        fn = ctypes.CDLL(out).chase_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        return fn
+        lib = ctypes.CDLL(out)
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        for name, args in (("chase_launch", [ptr, i64, ptr, ptr]),
+                           ("chase_shared_launch",
+                            [ptr, ctypes.c_int, i64, ptr, ptr]),
+                           ("observe_chain_launch", [ptr, i64, ptr, ptr]),
+                           ("merge_chain_launch",
+                            [ptr, ptr, ptr, i64, ptr, ptr])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        return _Probes(lib, dev)
     return load
 
 
-def _chase_ns(launch, nbytes, dev, steps=200_000):
-    """ns a hop of one thread chasing a random single cycle over a buffer
-    of ``nbytes`` (second of two identical launches, CUDA events)."""
+def _cycle(n, dev):
+    """next[] of one random cycle through n int32 slots."""
     import torch
-    N = max(nbytes // 4, 256)
-    perm = torch.randperm(N, device=dev)
-    nxt = torch.empty(N, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n, device=dev)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
     nxt[perm] = torch.roll(perm, -1).to(torch.int32)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    return nxt
+
+
+def _ns_a_step(launch, steps):
+    """ns a step of a one-thread chain: the second of two identical
+    launches, CUDA events."""
+    import torch
     for _ in range(2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        rc = launch(nxt.data_ptr(), steps, out.data_ptr(), stream)
+        rc = launch()
         end.record()
         torch.cuda.synchronize()
         if rc != 0:
-            raise RuntimeError(f"chase probe: launch failed ({rc})")
+            raise RuntimeError(f"latency probe: launch failed ({rc})")
     return start.elapsed_time(end) * 1e6 / steps
+
+
+class _Probes:
+    """The E-BST kernels' latency yardsticks (``tools_torch/chase.cu``),
+    ns a dependent step of one thread: :meth:`l2` a load in global memory
+    over a buffer of ``nbytes`` (the insert's walk below its cached top;
+    the serial walk), ``shared`` a load in shared memory over the
+    insert's cached top, ``observe`` and ``merge`` the statistics'
+    (total's fold; a level of the query's context forest)."""
+
+    STEPS = 200_000
+
+    def __init__(self, lib, dev):
+        import torch
+        from repro_torch.kernels import ebst as kebst
+        self.lib, self.dev = lib, dev
+        out = torch.empty(3, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n = kebst.SHARED_NODES * 4     # int32 slots of the cached top
+        nxt = _cycle(n, dev)
+        self.shared = _ns_a_step(lambda: lib.chase_shared_launch(
+            nxt.data_ptr(), n, self.STEPS, out.data_ptr(), stream),
+            self.STEPS)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        a = torch.randn(3, self.STEPS, generator=gen, device=dev)
+        a[0] = a[0].abs() * 100.0      # counts
+        a[2] = a[2].abs()              # M2
+        self.observe = _ns_a_step(lambda: lib.observe_chain_launch(
+            a[1].data_ptr(), self.STEPS, out.data_ptr(), stream), self.STEPS)
+        self.merge = _ns_a_step(lambda: lib.merge_chain_launch(
+            a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), self.STEPS,
+            out.data_ptr(), stream), self.STEPS)
+
+    def l2(self, nbytes):
+        """ns a hop through a random cycle over ``nbytes`` of global
+        memory (every hop a random cache line)."""
+        import torch
+        nxt = _cycle(max(nbytes // 4, 256), self.dev)
+        out = torch.empty(1, dtype=torch.int32, device=self.dev)
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        return _ns_a_step(lambda: self.lib.chase_launch(
+            nxt.data_ptr(), self.STEPS, out.data_ptr(), stream), self.STEPS)
 
 
 def _ebst_copy(t, dev):
@@ -1668,28 +1727,67 @@ def _ebst_same(k, p, what):
                 raise AssertionError(f"{what}: {part}/{key} differs")
 
 
-def _ebst_visits(t, xs):
-    """(nodes visited by the insert of ``xs`` into an empty tree, levels):
-    a row that made node v passed its depth(v) ancestors, a duplicate of
-    v's key passed depth(v) + 1 nodes (valid while no row hit capacity)."""
+def _ebst_walk(t, xs):
+    """Counts of inserting ``xs`` into an empty tree, from the tree it
+    made (valid while no row hit capacity): nodes visited (a row that
+    made node v passed its depth(v) ancestors, a duplicate of v's key
+    depth(v) + 1 nodes), those of them among the insert's shared-memory
+    nodes (index < ``kernels.ebst.SHARED_NODES``), the tree's levels and
+    its context forest's (1 + the most right turns on a root path: the
+    query's chain of merges)."""
     import torch
     from repro_torch.kernels import ebst as kebst
     size = int(t["size"])
     dev = xs.device
     left, right = t["left"][:size].long(), t["right"][:size].long()
-    depth = torch.full((size,), -1, dtype=torch.long, device=dev)
+    zeros = lambda: torch.zeros(size, dtype=torch.long, device=dev)
+    depth, cached_above, turns = zeros(), zeros(), zeros()
     frontier, d = torch.zeros(1, dtype=torch.long, device=dev), 0
     while frontier.numel():
         depth[frontier] = d
-        kids = torch.cat([left[frontier], right[frontier]])
-        frontier, d = kids[kids >= 0], d + 1
+        cached = cached_above[frontier] + (frontier < kebst.SHARED_NODES)
+        kids = []
+        for side, turn in ((left, 0), (right, 1)):
+            c = side[frontier]
+            has = c >= 0
+            cached_above[c[has]] = cached[has]
+            turns[c[has]] = turns[frontier[has]] + turn
+            kids.append(c[has])
+        frontier, d = torch.cat(kids), d + 1
     dec = int(t["decimals"])
     if dec >= 0:
         scale, inv = kebst._scales(dec, dev)
         xs = torch.round(xs * scale) * inv
     keys, order = torch.sort(t["key"][:size])
     node = order[torch.searchsorted(keys, xs)]
-    return int((depth[node] + 1).sum()) - size, d
+    own = torch.arange(size, device=dev) < kebst.SHARED_NODES
+    visits = int((depth[node] + 1).sum()) - size
+    shared = int((cached_above[node] + own[node]).sum()) - int(own.sum())
+    return dict(visits=visits, shared_visits=shared, levels=d,
+                context_levels=int(turns.max()) + 1)
+
+
+def _ebst_bounds(t, xs, probes):
+    """The E-BST kernels' latency bounds in ms for the tree ``t`` made by
+    inserting ``xs``.  The serial walk: nodes visited x the global
+    dependent-load latency at the tree's bytes (insert), two such loads
+    a node (query).  This design: insert max(shared-memory visits x the
+    shared chase + the others x the global one, N dependent observes:
+    total's fold); query max(one pass over the nodes' bytes at 3.35 TB/s,
+    the context forest's levels x one merge)."""
+    from repro_torch.kernels import ebst as kebst
+    from repro_torch.perf import profile
+    w = _ebst_walk(t, xs)
+    size = int(t["size"])
+    lat = probes.l2(size * 24)
+    walk = w["shared_visits"] * probes.shared \
+        + (w["visits"] - w["shared_visits"]) * lat
+    return dict(w, lat=lat, size=size,
+                serial_insert=w["visits"] * lat * 1e-6,
+                serial_query=size * 2 * lat * 1e-6,
+                insert=max(walk, xs.shape[0] * probes.observe) * 1e-6,
+                query=max(profile.bound(*kebst.query_cost(size))[0],
+                          w["context_levels"] * probes.merge * 1e-6))
 
 
 def _event_ms(fn):
@@ -1704,79 +1802,134 @@ def _event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def _ebst_rows(seed, dev, chase):
-    """Phase 3: both E-BST entry points against their plain versions (the
-    plain versions on host copies of the same inputs), bitwise, on a §5.1
-    stream of EBST_ROWS rows as E-BST and as TE-BST (3 decimals), with
-    duplicates, with NaN / +-inf / -0.0, and past capacity; each rerun
-    bitwise.  Returns the two kernels' rows."""
+def _ebst_device_ms(fn, reps=10):
+    """Device ms of one call: the profiler's time of the E-BST kernels
+    (a call's packing of the total and its ``out > 0`` left out)."""
+    from repro_torch.perf import profile
+    times = profile.device_times(fn, reps)
+    return sum(v for k, v in times.items() if "ebst" in k) or float("nan")
+
+
+def _ebst_insert_ms(fresh, insert, xt, yt, reps):
+    """Median CUDA-event ms of ``insert`` into a fresh copy of ``fresh``."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t = _ebst_copy(fresh, xt.device)
+        torch.cuda.synchronize()
+        times.append(_event_ms(lambda: insert(t, xt, yt))[1])
+    return statistics.median(times)
+
+
+EBST_BIG = 50_000              # phase 3: a tree beyond the shared top
+
+
+def _ebst_rows(seed, dev, probes):
+    """Phase 3: both E-BST entry points on the card, bitwise, each call one
+    launch, each rerun bitwise: against their plain versions (on host
+    copies of the same inputs) on a §5.1 stream of EBST_ROWS rows as E-BST
+    and as TE-BST (3 decimals), with duplicates, with NaN / +-inf / -0.0,
+    past capacity and with constant targets; against the single-thread
+    oracle kernels (the plain walk would take minutes) on the sorted and
+    the reversed stream (chains) and on EBST_BIG rows.  E-BST and TE-BST
+    are timed beside the oracle kernels and the plain versions, with both
+    latency bounds.  Returns the two kernels' rows."""
     import numpy as np
     import torch
     from repro_torch.core import ebst
     from repro_torch.data import synth
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ebst as kebst
     from repro_torch.perf import profile
     n = EBST_ROWS
     x, y = synth.generate(synth.SynthConfig("normal", 0, "lin", 0.1, n, seed))
+    xb, yb = synth.generate(synth.SynthConfig("normal", 0, "lin", 0.1,
+                                              EBST_BIG, seed + 5))
     rng = np.random.default_rng(seed + 3)
     ext = x.copy()
     for v, count in ((np.nan, 50), (np.inf, 25), (-np.inf, 25), (-0.0, 25)):
         ext[rng.integers(0, n, count)] = v
-    cases = [("E-BST", -1, x, n), ("TE-BST", 3, x, n),
-             ("duplicates", -1, np.round(x, 1).astype(np.float32), n),
-             ("NaN/inf", -1, ext, n), ("past capacity", -1, x, n // 4)]
-    yt = torch.as_tensor(y, device=dev)
+    chain = np.sort(x)
+    cases = [("E-BST", -1, x, y, n, "plain"), ("TE-BST", 3, x, y, n, "plain"),
+             ("duplicates", -1, np.round(x, 1).astype(np.float32), y, n,
+              "plain"),
+             ("NaN/inf", -1, ext, y, n, "plain"),
+             ("past capacity", -1, x, y, n // 4, "plain"),
+             ("constant y", -1, x, np.full(n, 2.5, np.float32), n, "plain"),
+             ("sorted chain", -1, chain, y, n, "serial"),
+             ("reversed chain", -1, chain[::-1].copy(), y, n, "serial"),
+             ("beyond shared memory", -1, xb, yb, EBST_BIG, "serial")]
     out = {}
-    for what, dec, xs, cap in cases:
-        xt = torch.as_tensor(xs, device=dev)
+    for what, dec, xs, ys, cap, oracle in cases:
+        xt, yt = torch.as_tensor(xs, device=dev), torch.as_tensor(ys,
+                                                                   device=dev)
+        rows = xt.shape[0]
         fresh = ebst.init(cap, dec, device=dev)
         k = _ebst_copy(fresh, dev)
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
         kebst.insert_kernel(k, xt, yt)
         sk = kebst.query_kernel(k)
         torch.cuda.synchronize()
-        p = _ebst_copy(fresh, "cpu")
-        t0 = time.perf_counter()
-        kebst.insert_plain(p, xt.cpu(), yt.cpu())
-        plain_ins = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        sp = kebst.query_plain(p)
-        plain_q = (time.perf_counter() - t0) * 1e3
+        for name in ("ebst_insert", "ebst_query"):
+            if _build.LAUNCHES[name] != before[name] + 1:
+                raise AssertionError(f"{name} ({what}): "
+                                     f"{_build.LAUNCHES[name] - before[name]}"
+                                     f" launches, expected 1")
+        if oracle == "plain":
+            p = _ebst_copy(fresh, "cpu")
+            t0 = time.perf_counter()
+            kebst.insert_plain(p, xt.cpu(), yt.cpu())
+            plain_ins = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            sp = kebst.query_plain(p)
+            plain_q = (time.perf_counter() - t0) * 1e3
+        else:
+            p = _ebst_copy(fresh, dev)
+            kebst.insert_serial(p, xt, yt)
+            sp = kebst.query_serial(p)
         _ebst_same(k, p, f"ebst_insert ({what})")
         if not all(_bits_same(a, b) for a, b in zip(sk, sp)):
             raise AssertionError(f"ebst_query ({what}): threshold, merit or "
-                                 f"valid differs from the plain version")
+                                 f"valid differs from the {oracle} version")
         r = _ebst_copy(fresh, dev)
         kebst.insert_kernel(r, xt, yt)
         _ebst_same(r, k, f"ebst_insert ({what}) rerun")
         if not all(_bits_same(a, b) for a, b in zip(kebst.query_kernel(r),
                                                     sk)):
             raise AssertionError(f"ebst_query ({what}): a rerun differs")
-        print(f"[3] ebst ({what}, {n} rows, capacity {cap}): {int(k['size'])} "
-              f"nodes; structure, le, total, threshold "
+        print(f"[3] ebst ({what}, {rows} rows, capacity {cap}): "
+              f"{int(k['size'])} nodes; structure, le, total, threshold "
               f"{float(sk[0]):+.5f} and merit {float(sk[1]):.6f} bitwise "
-              f"equal to the plain versions; rerun bitwise", flush=True)
+              f"equal to the {oracle} version; rerun bitwise; one launch "
+              f"each", flush=True)
         if what not in ("E-BST", "TE-BST"):
             continue
-        times = []
-        for _ in range(10):
-            fresh_k = _ebst_copy(fresh, dev)
-            torch.cuda.synchronize()
-            times.append(_event_ms(lambda: kebst.insert_kernel(fresh_k, xt,
-                                                               yt))[1])
-        ins_ms = statistics.median(times)
+        ins_ms = _ebst_insert_ms(fresh, kebst.insert_kernel, xt, yt, 10)
+        serial_ins = _ebst_insert_ms(fresh, kebst.insert_serial, xt, yt, 5)
         q_ms = _time_ms(lambda: kebst.query_kernel(k))
-        visits, levels = _ebst_visits(k, xt)
-        size = int(k["size"])
-        lat = chase(size * 24)
-        out[what] = dict(ins_ms=ins_ms, q_ms=q_ms, visits=visits, size=size,
-                         lat=lat, plain_ins=plain_ins, plain_q=plain_q,
-                         levels=levels, cap=cap)
-        print(f"[3] ebst ({what}): insert {ins_ms:.4f} ms ({visits} nodes "
-              f"visited, {ins_ms * 1e6 / visits:.1f} ns a node; the "
-              f"dependent-load latency over its {size * 24} B is "
-              f"{lat:.1f} ns), query {q_ms:.4f} ms ({size} nodes, "
-              f"{q_ms * 1e6 / size:.1f} ns a node); plain versions "
-              f"{plain_ins:.1f} / {plain_q:.1f} ms on the host", flush=True)
+        q_dev = _ebst_device_ms(lambda: kebst.query_kernel(k))
+        serial_q = _time_ms(lambda: kebst.query_serial(k), reps=5, warm=1)
+        b = _ebst_bounds(k, xt, probes)
+        out[what] = dict(b, ins_ms=ins_ms, q_ms=q_ms, q_dev=q_dev,
+                         serial_ins=serial_ins, serial_q=serial_q,
+                         plain_ins=plain_ins, plain_q=plain_q, cap=cap)
+        print(f"[3] ebst ({what}): insert {ins_ms:.4f} ms (serial kernel "
+              f"{serial_ins:.4f}; {b['visits']} nodes visited, "
+              f"{b['shared_visits']} of them in shared memory, "
+              f"{ins_ms * 1e6 / b['visits']:.1f} ns a node; bounds: serial "
+              f"{b['serial_insert']:.4f} ms, this design "
+              f"{b['insert']:.4f} ms), query {q_ms:.4f} ms a call, "
+              f"{q_dev:.4f} ms on the device (serial kernel {serial_q:.4f};"
+              f" {b['size']} nodes, {q_dev * 1e6 / b['size']:.1f} ns a node,"
+              f" {b['context_levels']} context levels; bounds: serial "
+              f"{b['serial_query']:.4f} ms, this design {b['query']:.5f} "
+              f"ms); plain versions {plain_ins:.1f} / {plain_q:.1f} ms on "
+              f"the host", flush=True)
+    print(f"[3] latency probes: global {out['E-BST']['lat']:.1f} ns a hop "
+          f"over {out['E-BST']['size'] * 24} B, shared {probes.shared:.1f} "
+          f"ns, observe {probes.observe:.1f} ns, merge {probes.merge:.1f} "
+          f"ns", flush=True)
     e = out["E-BST"]
     ins_bound, ins_by = profile.bound(*kebst.insert_cost(n, e["cap"],
                                                          e["visits"]))
@@ -1788,14 +1941,17 @@ def _ebst_rows(seed, dev, chase):
                  replaces="src/repro/core/ebst.py:60", max_abs_err=0.0,
                  ms=e["ins_ms"], plain_ms=e["plain_ins"], bound_ms=ins_bound,
                  bound_by=ins_by, library_ms=None,
-                 latency_bound_ms=e["visits"] * e["lat"] * 1e-6, note=note),
+                 serial_kernel_ms=e["serial_ins"],
+                 latency_bound_ms=e["serial_insert"],
+                 design_bound_ms=e["insert"], note=note),
             dict(name="ebst_query", route="cuda",
                  source="src/repro_torch/csrc/ebst.cu",
                  replaces="src/repro/core/ebst.py:135", max_abs_err=0.0,
-                 ms=e["q_ms"], plain_ms=e["plain_q"], bound_ms=q_bound,
-                 bound_by=q_by, library_ms=None,
-                 latency_bound_ms=e["size"] * 2 * e["lat"] * 1e-6,
-                 note=note)]
+                 ms=e["q_ms"], device_ms=e["q_dev"], plain_ms=e["plain_q"],
+                 bound_ms=q_bound, bound_by=q_by, library_ms=None,
+                 serial_kernel_ms=e["serial_q"],
+                 latency_bound_ms=e["serial_query"],
+                 design_bound_ms=e["query"], note=note)]
 
 
 def _make_qo(variant, x, dev):
@@ -1814,18 +1970,17 @@ def _make_qo(variant, x, dev):
     return qo.init(2048, radius=sigma / k, origin=mu, device=dev)
 
 
-def _run_ao(name, x, y, dev, chase):
+def _run_ao(name, x, y, dev, probes):
     """One attribute observer on one stream: merit, threshold, elements,
-    observe and query ms (CUDA events), and for the E-BSTs the nodes
-    visited and the probe's latency at the tree's size."""
+    observe and query ms (CUDA events), and for the E-BSTs the tree, its
+    split, the nodes visited and both designs' latency bounds."""
     from repro_torch.core import ebst, qo
     if name in ("ebst", "tebst"):
         t0 = ebst.init(x.shape[0], 3 if name == "tebst" else -1, device=dev)
         t, obs_ms = _event_ms(lambda: ebst.update(t0, x, y, device=dev))
         s, q_ms = _event_ms(lambda: ebst.best_split(t, device=dev))
         elements = int(ebst.n_elements(t))
-        visits, _ = _ebst_visits(t, x)
-        extra = dict(visits=visits, lat=chase(elements * 24))
+        extra = dict(_ebst_bounds(t, x, probes), tree=t, split=s)
     else:
         empty = _make_qo(name, x, dev)
         t, obs_ms = _event_ms(lambda: qo.update(empty, x, y, device=dev))
@@ -1844,8 +1999,30 @@ def _ao_line(tag, what, name, r, exact, thr_e):
             f"thr_E-BST| {abs(r['thr'] - thr_e):.5f}")
     if "visits" in r:
         line += (f" visited {r['visits']} ({r['obs_ms'] * 1e6 / r['visits']:.1f}"
-                 f" ns a node; latency {r['lat']:.1f} ns)")
+                 f" ns a node; insert bounds {r['serial_insert']:.3f} ms "
+                 f"serial, {r['insert']:.3f} ms this design) query "
+                 f"{r['q_ms'] * 1e6 / r['size']:.1f} ns a node (bounds "
+                 f"{r['serial_query']:.3f} ms serial, {r['query']:.4f} ms "
+                 f"this design; {r['context_levels']} context levels); "
+                 f"latency {r['lat']:.1f} ns")
     print(line, flush=True)
+
+
+def _ebst_oracle(r, x, y, what):
+    """An observer's tree and split bitwise equal to the single-thread
+    oracle kernels' on the same stream."""
+    from repro_torch.core import ebst
+    from repro_torch.kernels import ebst as kebst
+    t, s = r["tree"], r["split"]
+    o = ebst.init(t["key"].shape[0], int(t["decimals"]), device=x.device)
+    kebst.insert_serial(o, x, y)
+    _ebst_same(t, o, f"{what} against the serial oracle")
+    if not all(_bits_same(a, b) for a, b in zip(
+            (s.threshold, s.merit, s.valid), kebst.query_serial(o))):
+        raise AssertionError(f"{what}: the split differs from the serial "
+                             f"oracle's")
+    print(f"[14] {what}: tree and split bitwise equal to the single-thread "
+          f"oracle kernels'", flush=True)
 
 
 def _conditioning(y):
@@ -1880,7 +2057,7 @@ def _check_aos(what, res, exact, kappa2):
             raise AssertionError(f"{what}: {name} merit ratio {ratio}")
 
 
-def _ao_phase(seed, dev, chase, smi):
+def _ao_phase(seed, dev, probes, smi):
     """Phase 14: the paper's attribute-observer comparison (the AOs of the
     reference's ``benchmarks/aos.py``) on the §5.1 grid at AO_ROWS rows,
     the per-row cost's growth on (normal, 0, lin), and the quickstart
@@ -1902,7 +2079,7 @@ def _ao_phase(seed, dev, chase, smi):
         what = f"{cfg.dist}/{cfg.variant}/{cfg.task}"
         x, y = _paper_stream(cfg, dev)
         exact, kappa2 = _exact_merit(x, y), _conditioning(y)
-        res = {name: _run_ao(name, x, y, dev, chase) for name in AOS}
+        res = {name: _run_ao(name, x, y, dev, probes) for name in AOS}
         print(f"[14] {what}: exhaustive merit {exact:.6g}, targets' "
               f"kappa^2 {kappa2:.1f}", flush=True)
         for name in AOS:
@@ -1925,7 +2102,7 @@ def _ao_phase(seed, dev, chase, smi):
         cfg = synth.SynthConfig("normal", 0, "lin", 0.1, n, seed)
         x, y = _paper_stream(cfg, dev)
         exact = _exact_merit(x, y)
-        res = {name: _run_ao(name, x, y, dev, chase) for name in AOS}
+        res = {name: _run_ao(name, x, y, dev, probes) for name in AOS}
         for name in AOS:
             r = res[name]
             _ao_line("[14]", f"normal/0/lin n={n}", name, r, exact,
@@ -1933,12 +2110,15 @@ def _ao_phase(seed, dev, chase, smi):
             print(f"[14]     {name} observe {r['obs_ms'] * 1e6 / n:.1f} ns a "
                   f"row", flush=True)
         _check_aos(f"n={n}", res, exact, _conditioning(y))
+        if n == AO_ROWS:
+            for name in ("ebst", "tebst"):
+                _ebst_oracle(res[name], x, y, f"normal/0/lin n={n} {name}")
     rng = np.random.default_rng(0)
     xq = rng.normal(0, 1, 20_000).astype(np.float32)
     yq = np.where(xq <= 0.3, 1.0, 6.0).astype(np.float32) + \
         0.1 * rng.normal(0, 1, 20_000).astype(np.float32)
     xq, yq = torch.as_tensor(xq, device=dev), torch.as_tensor(yq, device=dev)
-    thr = {name: _run_ao(name, xq, yq, dev, chase)["thr"]
+    thr = {name: _run_ao(name, xq, yq, dev, probes)["thr"]
            for name in ("ebst", "qo_0.01")}
     gap = abs(thr["qo_0.01"] - thr["ebst"])
     print(f"[14] quickstart: E-BST {thr['ebst']:+.5f}, QO r=0.01 "
@@ -3091,11 +3271,10 @@ def main(argv=None) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    load_probe = _start_probe()
+    load_probes = _start_probe()
     libs = _build.build()
-    chase_launch = load_probe()
-    chase = lambda nbytes: _chase_ns(chase_launch, nbytes, dev)
-    print(f"[2] built {len(libs)} kernel sources and the latency probe in "
+    probes = load_probes(dev)
+    print(f"[2] built {len(libs)} kernel sources and the latency probes in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -3186,7 +3365,7 @@ def main(argv=None) -> int:
     del sin, merged, stab, sy, ssx
     rows.extend(_qo_rows(args.seed, dev))
     rows.append(_qo_merge_row(cfg, batches, args.seed, dev))
-    rows.extend(_ebst_rows(args.seed, dev, chase))
+    rows.extend(_ebst_rows(args.seed, dev, probes))
 
     # ---- 4. end to end ----------------------------------------------------
     def stream():
@@ -3271,7 +3450,7 @@ def main(argv=None) -> int:
 
     # ---- 14. the attribute-observer comparison ---------------------------
     t0 = time.perf_counter()
-    ao_launches = _ao_phase(args.seed, dev, chase, smi)
+    ao_launches = _ao_phase(args.seed, dev, probes, smi)
 
     # ---- 15. multi-target QO, telemetry, sparsification, oracle ----------
     _phase15(batches, args.seed, dev)

@@ -9,8 +9,8 @@ to ``decimals`` places first, which bounds the number of distinct keys.
 
 Nodes live in fixed-capacity arrays (the reference's dict layout and
 names, :func:`init`); at capacity further rows only update the statistics
-along their path.  :func:`update` and :func:`best_split` run one launch
-each of ``csrc/ebst.cu`` on the card (:mod:`repro_torch.kernels.ebst`),
+along their path.  :func:`update` and :func:`best_split` run one kernel
+call each of ``csrc/ebst.cu`` on the card (:mod:`repro_torch.kernels.ebst`),
 the plain versions on the CPU.  Trees are returned new, never updated in
 place.
 """
@@ -33,7 +33,7 @@ __all__ = ["init", "update", "best_split", "n_elements"]
 def init(capacity: int, decimals: int = -1, *, device=None) -> EBST:
     """Empty E-BST of ``capacity`` nodes on ``device`` (default ``cuda``).
     ``decimals >= 0`` makes it a TE-BST.  At capacity 10^6 the arrays take
-    24 MB (and a query's stack 16 MB more)."""
+    24 MB (and a query's scratch 64 MB more)."""
     dev = dv.resolve(device)
     i32 = dict(dtype=torch.int32, device=dev)
     return {

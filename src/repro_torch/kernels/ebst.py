@@ -3,8 +3,13 @@
 No TPU kernel exists for these: the reference's ``core/ebst.py`` lowers
 the serial insert (``_insert_one``, ``ebst.py:60``) to a ``lax.scan`` of a
 ``lax.while_loop`` and the in-order query (``best_split``, ``ebst.py:135``)
-to a ``lax.while_loop`` over an explicit stack.  Here each is one launch
-of ``csrc/ebst.cu`` on the card.
+to a ``lax.while_loop`` over an explicit stack.  Here each is a kernel of
+``csrc/ebst.cu`` on the card: the insert one block whose walker warp walks
+the structure (its top in shared memory) while other warps apply the
+statistics, the query a level-synchronous walk that computes every
+node's left statistics (one block on narrow levels, the whole card on
+wide ones), then a grid that scores them and picks the best in
+in-order.
 
 The tree is the reference's dict: ``key`` (cap,) f32, ``left`` /
 ``right`` (cap,) i32 (-1 = nil), ``le`` Stats (cap,), ``size`` () i32,
@@ -16,10 +21,16 @@ The tree is the reference's dict: ``key`` (cap,) f32, ``left`` /
   kernel, or :func:`query_plain`.
 
 The plain versions walk the same arrays with scalar tensor reads and the
-port's :mod:`repro_torch.core.stats` algebra on 0-d tensors; the kernel
-takes every operation in their order with explicit rounding, so the two
-are bitwise equal.  Launches are counted under ``"ebst_insert"`` and
-``"ebst_query"`` in :data:`repro_torch.kernels._build.LAUNCHES`.
+port's :mod:`repro_torch.core.stats` algebra on 0-d tensors; the kernels
+take every operation in their order with explicit rounding, so the two
+are bitwise equal.  :func:`query_model` is a plain PyTorch model of the
+query kernel's algorithm (level-synchronous left statistics, parallel
+scores, the in-order tie key), used by the tests.  :func:`insert_serial`
+and :func:`query_serial` launch single-thread kernels of the same walks, a
+bitwise oracle on the card where the plain versions take minutes; no
+path of :mod:`repro_torch.core.ebst` calls them.  Launches of the path's
+kernels are counted under ``"ebst_insert"`` and ``"ebst_query"`` in
+:data:`repro_torch.kernels._build.LAUNCHES`; the oracle's are not.
 """
 from __future__ import annotations
 
@@ -32,11 +43,15 @@ from repro_torch.core import stats
 from repro_torch.kernels import _build
 
 __all__ = ["insert_plain", "insert_kernel", "insert", "query_plain",
-           "query_kernel", "query", "insert_cost", "query_cost",
-           "STACK_ENTRY_BYTES"]
+           "query_kernel", "query", "query_model", "inorder_keys",
+           "insert_serial", "query_serial", "insert_cost", "query_cost",
+           "STACK_ENTRY_BYTES", "SHARED_NODES"]
 
-#: One query stack entry in the kernel: node (i32) and S (3 x f32).
+#: One stack entry of the serial query: node (i32) and S (3 x f32).
 STACK_ENTRY_BYTES = 16
+#: Nodes the insert kernel keeps in shared memory (``csrc/ebst.cu``
+#: ``SHARED_NODES``; the launcher checks that the two agree).
+SHARED_NODES = 13312
 
 _NIL = -1
 
@@ -156,6 +171,102 @@ def query_plain(t):
     return thr, torch.where(valid, best, 0.0), valid
 
 
+def _order_codes(k):
+    """The query kernel's order code of each non-NaN f32 key, int64: the
+    float order as unsigned integers, -0.0 as +0.0, every code above
+    ``_LO_NONE``."""
+    u = (k + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+
+
+_LO_NONE = 0
+
+
+def _levels(t):
+    """The query kernel's level-synchronous walk of the tree by depth.
+    A level's nodes v take left(v) = merge(left(c(v)), le[v]) together,
+    c(v) being v's nearest ancestor whose right subtree holds v (none:
+    the empty statistics), which an earlier level computed; children
+    learn c from their parent.  lo(v) is the order code of the largest
+    non-NaN key among the ancestors v passed on the right (``_LO_NONE``
+    if none).  Returns ``(left stats (size,), lo (size,) int64, c (size,)
+    int64, levels)``."""
+    key, left, right, le = t["key"], t["left"], t["right"], t["le"]
+    size = int(t["size"])
+    dev = key.device
+    L = stats.init((size,), dev)
+    lo = torch.full((size,), _LO_NONE, dtype=torch.int64, device=dev)
+    c = torch.full((size,), -1, dtype=torch.int64, device=dev)
+    nodes = torch.zeros(1 if size else 0, dtype=torch.int64, device=dev)
+    levels = 0
+    while nodes.numel():
+        levels += 1
+        cv = c[nodes]
+        S = {k: torch.where(cv >= 0, v[cv.clamp(min=0)], 0.0)
+             for k, v in L.items()}
+        Lv = stats.merge(S, {k: v[nodes] for k, v in le.items()})
+        for k, v in Lv.items():
+            L[k][nodes] = v
+        kv = key[nodes]
+        lo_r = torch.where(torch.isnan(kv), lo[nodes], _order_codes(kv))
+        lc, rc = left[nodes].long(), right[nodes].long()
+        hl, hr = lc >= 0, rc >= 0
+        c[lc[hl]], lo[lc[hl]] = cv[hl], lo[nodes][hl]
+        c[rc[hr]], lo[rc[hr]] = nodes[hr], lo_r[hr]
+        nodes = torch.cat([lc[hl], rc[hr]])
+    return L, lo, c, levels
+
+
+def inorder_keys(t):
+    """The query kernel's tie key of every node, (size,) int64: smaller
+    is earlier in in-order.  Non-NaN keys are in in-order ascending
+    (a duplicate adds no node; -0.0 == 0.0).  A NaN key goes right at
+    every node, so NaN nodes lie on the root's right spine with no left
+    child, after every node outside their subtree and before the rest of
+    it; the nodes outside are those whose key is <= lo.  So the key is
+    (code(key), 0, v) for a non-NaN key and (code(lo), 1, v) for a NaN
+    one (a deeper NaN node, made later, has the larger v)."""
+    key = t["key"][:int(t["size"])]
+    _, lo, _, _ = _levels(t)
+    v = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)
+    nan = torch.isnan(key)
+    code = torch.where(nan, lo, _order_codes(key))
+    return (code - 2 ** 31) * 2 ** 32 + nan.to(torch.int64) * 2 ** 31 + v
+
+
+def query_model(t):
+    """Plain PyTorch model of the query kernel's algorithm (used by the
+    tests): every node's left statistics level by level (:func:`_levels`),
+    right = subtract(total, left), the VR of all nodes at once, then the
+    largest non-NaN score, ties to the smallest :func:`inorder_keys`.
+    Bitwise equal to :func:`query_plain`: the same operations on the same
+    operands, and the walk's "first strictly greater score" is the
+    largest score's first node in in-order."""
+    key, total = t["key"], t["total"]
+    size = int(t["size"])
+    thr = torch.zeros((), dtype=torch.float32, device=key.device)
+    best = torch.tensor(float("-inf"), device=key.device)
+    if size:
+        left_s, _, _, _ = _levels(t)
+        right_s = stats.subtract(total, left_s)
+        n_tot = torch.clamp(total["n"], min=1.0)
+        ok = (left_s["n"] > 0) & (right_s["n"] > 0)
+        vr = stats.variance(total) \
+            - (left_s["n"] / n_tot) * stats.variance(left_s) \
+            - (right_s["n"] / n_tot) * stats.variance(right_s)
+        score = torch.where(ok, vr, float("-inf"))
+        live = ~torch.isnan(score)
+        if bool(live.any()):
+            top = score[live].max()
+            tied = live & (score == top)
+            w = torch.where(tied, inorder_keys(t),
+                            torch.iinfo(torch.int64).max).argmin()
+            if bool(score[w] > best):
+                best, thr = score[w], key[w].clone()
+    valid = torch.isfinite(best)
+    return thr, torch.where(valid, best, 0.0), valid
+
+
 def _check(t, what):
     dev = t["key"].device
     cap = t["key"].shape[0]
@@ -177,69 +288,130 @@ def _check(t, what):
     return dev, cap
 
 
+def _launcher(name, argtypes, restype=ctypes.c_int):
+    fn = getattr(_build.library("ebst"), name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+_INSERT_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _insert_launcher():
-    fn = _build.library("ebst").ebst_insert_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    shared = _launcher("ebst_shared_nodes", [])()
+    if shared != SHARED_NODES:
+        raise RuntimeError(f"ebst_insert: csrc/ebst.cu keeps {shared} nodes "
+                           f"in shared memory, kernels/ebst.py says "
+                           f"{SHARED_NODES}")
+    return _launcher("ebst_insert_launch", _INSERT_ARGS)
 
 
 @functools.lru_cache(maxsize=None)
 def _query_launcher():
-    fn = _build.library("ebst").ebst_query_launch
-    fn.argtypes = [ctypes.c_void_p] * 11
-    fn.restype = ctypes.c_int
-    return fn
+    return _launcher("ebst_query_launch", [ctypes.c_void_p] * 9
+                     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def insert_kernel(t, xs, ys) -> None:
-    """Launch ``ebst_insert`` of ``csrc/ebst.cu``: the rows (xs, ys), (N,)
-    contiguous float32 on the tree's device, in order, in place.  The
-    total's three scalars are packed into one buffer for the launch and
-    copied back after it (no host read)."""
-    dev, cap = _check(t, "ebst_insert")
+@functools.lru_cache(maxsize=None)
+def _serial_launchers():
+    return (_launcher("ebst_insert_serial_launch", _INSERT_ARGS),
+            _launcher("ebst_query_serial_launch", [ctypes.c_void_p] * 11))
+
+
+@functools.lru_cache(maxsize=None)
+def _query_scratch_bytes(cap: int) -> int:
+    return _launcher("ebst_query_scratch_bytes", [ctypes.c_int],
+                     ctypes.c_longlong)(cap)
+
+
+def _check_rows(dev, xs, ys, what):
     N = xs.shape[0]
     for name, a in (("xs", xs), ("ys", ys)):
         if not a.is_cuda or a.device != dev or a.dtype != torch.float32 \
                 or not a.is_contiguous() or tuple(a.shape) != (N,):
-            raise ValueError(f"ebst_insert: {name} must be a contiguous "
+            raise ValueError(f"{what}: {name} must be a contiguous "
                              f"float32 (N,) tensor on {dev}")
-    if N == 0:
-        return
+    return N
+
+
+def _run_insert(launch, t, xs, ys, cap, dev):
+    """Launch an insert kernel; the total's three scalars are packed into
+    one buffer for the launch and copied back after it (no host read)."""
     tot = torch.stack([t["total"][k] for k in ("n", "mean", "m2")])
     stream = torch.cuda.current_stream(dev).cuda_stream
     le = t["le"]
-    rc = _insert_launcher()(
+    rc = launch(
         t["key"].data_ptr(), t["left"].data_ptr(), t["right"].data_ptr(),
         le["n"].data_ptr(), le["mean"].data_ptr(), le["m2"].data_ptr(),
         t["size"].data_ptr(), tot.data_ptr(), t["decimals"].data_ptr(),
-        xs.data_ptr(), ys.data_ptr(), N, cap, stream)
+        xs.data_ptr(), ys.data_ptr(), xs.shape[0], cap, stream)
     _build.check(rc, "ebst")
-    _build.launched("ebst_insert", lambda: insert_cost(N, int(t["size"])))
     for i, k in enumerate(("n", "mean", "m2")):
         t["total"][k].copy_(tot[i])
 
 
+def _query_args(t):
+    le = t["le"]
+    tot = torch.stack([t["total"][k] for k in ("n", "mean", "m2")])
+    return tot, (t["key"].data_ptr(), t["left"].data_ptr(),
+                 t["right"].data_ptr(), le["n"].data_ptr(),
+                 le["mean"].data_ptr(), le["m2"].data_ptr(),
+                 t["size"].data_ptr(), tot.data_ptr())
+
+
+def insert_kernel(t, xs, ys) -> None:
+    """Launch ``ebst_insert`` of ``csrc/ebst.cu``: the rows (xs, ys), (N,)
+    contiguous float32 on the tree's device, in order, in place."""
+    dev, cap = _check(t, "ebst_insert")
+    N = _check_rows(dev, xs, ys, "ebst_insert")
+    if N == 0:
+        return
+    _run_insert(_insert_launcher(), t, xs, ys, cap, dev)
+    _build.launched("ebst_insert", lambda: insert_cost(N, int(t["size"])))
+
+
 def query_kernel(t):
     """Launch ``ebst_query`` of ``csrc/ebst.cu`` -> (threshold, merit,
-    valid) 0-d tensors on the card; the stack is a scratch buffer of
-    cap + 1 entries."""
+    valid) 0-d tensors on the card; its level queue, left statistics and
+    per-block bests live in one scratch buffer of
+    ``ebst_query_scratch_bytes(cap)`` bytes."""
     dev, cap = _check(t, "ebst_query")
-    tot = torch.stack([t["total"][k] for k in ("n", "mean", "m2")])
+    launch = _query_launcher()
+    scratch = torch.empty(_query_scratch_bytes(cap), dtype=torch.uint8,
+                          device=dev)
+    out = torch.empty(3, dtype=torch.float32, device=dev)
+    tot, args = _query_args(t)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = launch(*args, scratch.data_ptr(), cap, out.data_ptr(), stream)
+    _build.check(rc, "ebst")
+    _build.launched("ebst_query", lambda: query_cost(int(t["size"])))
+    return out[0], out[1], out[2] > 0
+
+
+def insert_serial(t, xs, ys) -> None:
+    """The serial insert kernel (one thread), in place: a bitwise oracle
+    on the card; not counted in ``LAUNCHES``."""
+    dev, cap = _check(t, "ebst_insert_serial")
+    _check_rows(dev, xs, ys, "ebst_insert_serial")
+    if xs.shape[0]:
+        _run_insert(_serial_launchers()[0], t, xs, ys, cap, dev)
+
+
+def query_serial(t):
+    """The serial query kernel (one thread, its stack of cap + 1 entries
+    in scratch): a bitwise oracle on the card; not counted in
+    ``LAUNCHES``."""
+    dev, cap = _check(t, "ebst_query_serial")
+    launch = _serial_launchers()[1]
     stack = torch.empty((cap + 1) * STACK_ENTRY_BYTES, dtype=torch.uint8,
                         device=dev)
     out = torch.empty(3, dtype=torch.float32, device=dev)
+    tot, args = _query_args(t)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    le = t["le"]
-    rc = _query_launcher()(
-        t["key"].data_ptr(), t["left"].data_ptr(), t["right"].data_ptr(),
-        le["n"].data_ptr(), le["mean"].data_ptr(), le["m2"].data_ptr(),
-        t["size"].data_ptr(), tot.data_ptr(), stack.data_ptr(),
-        out.data_ptr(), stream)
-    _build.check(rc, "ebst")
-    _build.launched("ebst_query", lambda: query_cost(int(t["size"])))
+    _build.check(launch(*args, stack.data_ptr(), out.data_ptr(), stream),
+                 "ebst")
     return out[0], out[1], out[2] > 0
 
 

@@ -164,6 +164,102 @@ def test_kernel_launchers_refuse_cpu_tensors():
         kebst.query_kernel(t)
 
 
+# ---- the query kernel's algorithm, modelled on the CPU ------------------
+
+def model_cases():
+    """Trees the query model is held on: (x, y, capacity, decimals)."""
+    rng = np.random.default_rng(11)
+    x, y = stream(rng, 600)
+    ext = x.copy()
+    for v, count in ((np.nan, 30), (np.inf, 10), (-np.inf, 10), (-0.0, 10),
+                     (0.0, 10)):
+        ext[rng.integers(0, 600, count)] = v
+    chain = np.sort(x[:300])
+    return {
+        "iid": (x, y, 600, -1),
+        "tebst": (x, y, 600, 1),
+        "sorted_chain": (chain, y[:300], 300, -1),
+        "reversed_chain": (chain[::-1].copy(), y[:300], 300, -1),
+        "constant_y": (x, np.full(600, 2.5, np.float32), 600, -1),
+        "nan_inf_zero": (ext, y, 600, -1),
+        "nan_inf_zero_constant_y": (ext, np.ones(600, np.float32), 600, -1),
+        "nan_root_constant_y": (np.array([np.nan, 1, 2, np.nan, 3],
+                                         np.float32),
+                                np.full(5, 3.0, np.float32), 8, -1),
+        "single_node": (x[:1], y[:1], 4, -1),
+        "empty": (x[:0], y[:0], 4, -1),
+        "past_capacity": (x, y, 150, -1),
+    }
+
+
+def bits_equal(a, b):
+    """Equal values, NaN where NaN, signs of zeros too."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan], b[~nan]) and torch.equal(torch.signbit(a[~nan]),
+                                          torch.signbit(b[~nan]))
+
+
+def inorder(t):
+    """Node ids in in-order, by an explicit walk."""
+    left, right = t["left"].tolist(), t["right"].tolist()
+    out, stack, v = [], [], 0 if int(t["size"]) else -1
+    while stack or v != -1:
+        while v != -1:
+            stack.append(v)
+            v = left[v]
+        v = stack.pop()
+        out.append(v)
+        v = right[v]
+    return out
+
+
+@pytest.mark.parametrize("case", list(model_cases()))
+def test_query_model_matches_plain_and_reference(case):
+    """The query kernel's algorithm (level-wise left statistics, parallel
+    scores, the in-order tie key) bitwise = the plain walk, and = the
+    reference's ``best_split`` (threshold exact, merit within 1e-4)."""
+    x, y, cap, dec = model_cases()[case]
+    t, sp = port(cap, dec, x, y)
+    model = kebst.query_model(t)
+    for a, b in zip(model, (sp.threshold, sp.merit, sp.valid)):
+        assert bits_equal(a, b)
+    r = rebst.init(cap, dec) if x.shape[0] == 0 else reference(
+        cap, dec, x, y)[0]
+    rs = jax.jit(rebst.best_split)(r)
+    assert bool(model[2]) == bool(rs.valid)
+    assert bits_equal(model[0], torch.tensor(np.asarray(rs.threshold)))
+    np.testing.assert_allclose(float(model[1]), float(rs.merit), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("case", list(model_cases()))
+def test_inorder_keys_order_the_walk(case):
+    """Sorting the nodes by the kernel's tie key gives the in-order walk,
+    NaN keys on the right spine included; no two nodes share a key."""
+    x, y, cap, dec = model_cases()[case]
+    t, _ = port(cap, dec, x, y)
+    keys = kebst.inorder_keys(t)
+    assert torch.argsort(keys).tolist() == inorder(t)
+    assert torch.unique(keys).numel() == keys.numel()
+
+
+def test_query_model_levels_follow_the_context_forest():
+    """A sorted stream's chain: ascending, every node's context is its
+    parent's left statistics (c(v) = v - 1); descending, none has one."""
+    x = np.arange(1, 41, dtype=np.float32)
+    y = np.arange(40, dtype=np.float32) % 7
+    up, _ = port(40, -1, x, y)
+    _, _, c, levels = kebst._levels(up)
+    assert c.tolist() == list(range(-1, 39)) and levels == 40
+    down, _ = port(40, -1, x[::-1].copy(), y)
+    _, _, c, _ = kebst._levels(down)
+    assert c.tolist() == [-1] * 40
+
+
 # ---- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -175,7 +271,8 @@ def card():
 
 def card_streams(n=5000, seed=0):
     """The card cases: an i.i.d. stream, one with duplicates, one with
-    NaN and +-inf, and one past capacity."""
+    NaN and +-inf, one past capacity and one with constant targets (every
+    VR ties at 0: the smallest key must win)."""
     rng = np.random.default_rng(seed)
     x, y = stream(rng, n)
     dup = np.round(x, 1).astype(np.float32)
@@ -185,7 +282,20 @@ def card_streams(n=5000, seed=0):
     ext[rng.integers(0, n, 20)] = -np.inf
     ext[rng.integers(0, n, 20)] = -0.0
     return {"iid": (x, y, n), "duplicates": (dup, y, n),
-            "extremes": (ext, y, n), "past_capacity": (x, y, n // 4)}
+            "extremes": (ext, y, n), "past_capacity": (x, y, n // 4),
+            "constant_y": (x, np.full(n, 2.5, np.float32), n)}
+
+
+def oracle_streams(seed=0):
+    """Cases held against the single-thread kernels, where the plain
+    versions take minutes: sorted streams (chains as deep as the tree is
+    large) and a tree larger than the insert's shared-memory part."""
+    rng = np.random.default_rng(seed)
+    x, y = stream(rng, 50_000)
+    chain = np.sort(x[:5000])
+    return {"sorted_chain": (chain, y[:5000], 5000),
+            "reversed_chain": (chain[::-1].copy(), y[:5000], 5000),
+            "larger_than_shared": (x, y, 50_000)}
 
 
 def same(a, b):
@@ -203,7 +313,7 @@ class TestOnCard:
 
     @pytest.mark.parametrize("decimals", [-1, 3])
     @pytest.mark.parametrize("case", ["iid", "duplicates", "extremes",
-                                      "past_capacity"])
+                                      "past_capacity", "constant_y"])
     def test_insert_and_query_bitwise(self, card, decimals, case):
         x, y, cap = card_streams()[case]
         t0 = tebst.init(cap, decimals, device=card)
@@ -230,3 +340,41 @@ class TestOnCard:
                              x[1000:], y[1000:], device=card)
         for key in ("key", "left", "right", "size"):
             assert same(again[key], k[key].cpu())
+
+    @pytest.mark.parametrize("decimals", [-1, 3])
+    @pytest.mark.parametrize("case", list(oracle_streams()))
+    def test_against_serial_oracle(self, card, decimals, case):
+        """Bitwise = the single-thread kernels on trees whose plain walk
+        takes minutes; two batches, reruns bitwise, launches counted."""
+        x, y, cap = oracle_streams()[case]
+        xt, yt = torch.as_tensor(x, device=card), torch.as_tensor(
+            y, device=card)
+        t0 = tebst.init(cap, decimals, device=card)
+        runs = []
+        for _ in range(2):
+            before = dict(_build.LAUNCHES)
+            k = tebst.update(t0, xt[:1000], yt[:1000], device=card)
+            k = tebst.update(k, xt[1000:], yt[1000:], device=card)
+            sk = tebst.best_split(k, device=card)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["ebst_insert"] == \
+                before["ebst_insert"] + 2
+            assert _build.LAUNCHES["ebst_query"] == before["ebst_query"] + 1
+            runs.append((k, sk))
+        o = {kk: ({a: b.clone() for a, b in v.items()} if isinstance(v, dict)
+                  else v.clone()) for kk, v in t0.items()}
+        before = dict(_build.LAUNCHES)
+        kebst.insert_serial(o, xt[:1000], yt[:1000])
+        kebst.insert_serial(o, xt[1000:], yt[1000:])
+        so = kebst.query_serial(o)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == before     # the oracle is not counted
+        for k, sk in runs:
+            for key in ("key", "left", "right", "size"):
+                assert same(k[key], o[key].cpu()), key
+            for part in ("le", "total"):
+                for key in ("n", "mean", "m2"):
+                    assert same(k[part][key], o[part][key].cpu()), \
+                        f"{part}/{key}"
+            for a, b in zip(sk, so):
+                assert same(a, b.cpu())
