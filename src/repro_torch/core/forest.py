@@ -29,6 +29,7 @@ from repro_torch.core import hoeffding as ht
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.perf.spans import count, span
 
 ForestState = dict
 
@@ -221,12 +222,14 @@ def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
     delta instead of the trees -- and the ``(order, offsets)`` of the sort,
     which the absorb walks again."""
     T, M = trees["feature"].shape
-    leaf = _route_all(cfg, trees, X)
-    gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None] * M
-          + leaf).reshape(-1)
-    rows = kops.sort_rows(gl, T * M)
-    batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1),
-                                  rows)
+    with span("forest.route"):
+        leaf = _route_all(cfg, trees, X)
+    with span("forest.stats"):
+        gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None]
+              * M + leaf).reshape(-1)
+        rows = kops.sort_rows(gl, T * M)
+        batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1),
+                                      rows)
     return (gl, leaf, {k: v.reshape(T, M) for k, v in batch_leaf.items()},
             rows)
 
@@ -244,17 +247,20 @@ def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
     observer new planes."""
     T, M = trees["feature"].shape
     flat = lambda a: _fold(a, T, M)
-    if cfg.tree.observer_backend == "sketch":
-        # the sketch needs no quantization grid: the folded leaf ids alone
-        # segment the batch
-        fy, fsx = kops.sketch_update({k: flat(v) for k, v in ao_y.items()},
-                                     flat(ao_sum_x), gl, X, y, w.reshape(-1))
-        unflat = lambda a: a.reshape((T, M) + a.shape[1:])
-        return {k: unflat(v) for k, v in fy.items()}, unflat(fsx)
-    kops.forest_update({k: flat(v) for k, v in ao_y.items()}, flat(ao_sum_x),
-                       flat(trees["ao_radius"]), flat(trees["ao_origin"]),
-                       gl, X, y, w.reshape(-1), rows=rows)
-    return ao_y, ao_sum_x
+    with span("forest.absorb"):
+        if cfg.tree.observer_backend == "sketch":
+            # the sketch needs no quantization grid: the folded leaf ids
+            # alone segment the batch
+            fy, fsx = kops.sketch_update(
+                {k: flat(v) for k, v in ao_y.items()}, flat(ao_sum_x), gl, X,
+                y, w.reshape(-1))
+            unflat = lambda a: a.reshape((T, M) + a.shape[1:])
+            return {k: unflat(v) for k, v in fy.items()}, unflat(fsx)
+        kops.forest_update({k: flat(v) for k, v in ao_y.items()},
+                           flat(ao_sum_x), flat(trees["ao_radius"]),
+                           flat(trees["ao_origin"]), gl, X, y, w.reshape(-1),
+                           rows=rows)
+        return ao_y, ao_sum_x
 
 
 def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
@@ -277,10 +283,11 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
                     else torch.stack([m[k] for m in members]))
                 for k, v in trees.items()}
     gl, _, batch_leaf, rows = _fused_route_stats(cfg, trees, X, y, w)
-    trees = dict(trees,
-                 ystats=stats.merge(trees["ystats"], batch_leaf),
-                 seen_since_attempt=trees["seen_since_attempt"]
-                 + batch_leaf["n"])
+    with span("forest.stats"):
+        trees = dict(trees,
+                     ystats=stats.merge(trees["ystats"], batch_leaf),
+                     seen_since_attempt=trees["seen_since_attempt"]
+                     + batch_leaf["n"])
     ao_y, ao_sum_x = _fused_absorb_tables(cfg, trees["ao_y"],
                                           trees["ao_sum_x"], trees, gl, X, y,
                                           w, rows)
@@ -308,6 +315,13 @@ def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
     only the forest vote is all-reduced, and the drift swap is resolved
     among the rank's members.
     """
+    with span("forest.update"):
+        count("forest.steps")
+        return _update(cfg, state, X, y, w, bag_w, new_masks, device, group)
+
+
+def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
+    """:func:`update`'s body, one profiler span per stage."""
     dev = dv.resolve(device)
     dv.check_on(state["vote_w"], dev, "state")
     X, y, row_w = ht.as_batch(X, y, w, dev)
@@ -316,73 +330,85 @@ def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
     wsum = torch.clamp(row_w.sum(), min=1e-12)
 
     # --- test: prequential member + forest errors on the raw stream ------
-    yhat = _member_predictions(cfg, state["trees"], X)           # (T, B)
-    member_mse = (row_w[None, :] * (yhat - y[None, :]) ** 2).sum(1) / wsum
-    fpred = vote_combine(yhat, state["vote_w"], group)
-    forest_mse = (row_w * (fpred - y) ** 2).sum() / wsum
+    with span("forest.predict"):
+        yhat = _member_predictions(cfg, state["trees"], X)       # (T, B)
+        member_mse = (row_w[None, :] * (yhat - y[None, :]) ** 2).sum(1) \
+            / wsum
+        fpred = vote_combine(yhat, state["vote_w"], group)
+        forest_mse = (row_w * (fpred - y) ** 2).sum() / wsum
 
     # --- train: Poisson(lambda) bagging weights, one fused member update --
-    gen = _generator(state["rng"], dev)
-    if bag_w is None:
-        cdf = torch.tensor(_poisson_cdf(cfg.lam), dtype=torch.float32,
-                           device=dev)
-        bag_w = _poisson_weights(gen, cdf, (T, B), dev)
-    else:
-        bag_w = torch.as_tensor(bag_w, dtype=torch.float32, device=dev)
-    if new_masks is None:
-        new_masks = _draw_masks(gen, T, F, cfg.subspace_k(), dev)
-    else:
-        new_masks = torch.as_tensor(new_masks, dtype=torch.bool, device=dev)
-    trees = _learn(cfg, state["trees"], state["feat_mask"], X, y,
-                   bag_w * row_w[None, :])
+    with span("forest.bag"):
+        gen = _generator(state["rng"], dev)
+        if bag_w is None:
+            cdf = torch.tensor(_poisson_cdf(cfg.lam), dtype=torch.float32,
+                               device=dev)
+            bag_w = _poisson_weights(gen, cdf, (T, B), dev)
+        else:
+            bag_w = torch.as_tensor(bag_w, dtype=torch.float32, device=dev)
+        if new_masks is None:
+            new_masks = _draw_masks(gen, T, F, cfg.subspace_k(), dev)
+        else:
+            new_masks = torch.as_tensor(new_masks, dtype=torch.bool,
+                                        device=dev)
+        w_learn = bag_w * row_w[None, :]
+    trees = _learn(cfg, state["trees"], state["feat_mask"], X, y, w_learn)
 
     # --- drift: ADWIN-style short-vs-long window test per member ---------
     # compared BEFORE this batch folds into the long window; both windows
     # advance by the batch's real-row fraction
-    live = row_w.sum() > 0
-    frac = torch.where(live, torch.clamp(wsum / max(float(B), 1.0),
-                                         max=1.0), 0.0)
-    alpha = cfg.drift_alpha * frac
-    first = (state["err_win"]["n"] < 0.5) & live
-    ewma = torch.where(first, member_mse,
-                       (1.0 - alpha) * state["err_ewma"] + alpha * member_mse)
-    ref = state["err_win"]
-    sd = torch.sqrt(torch.clamp(stats.variance(ref), min=1e-12))
-    signal = (ref["n"] >= cfg.drift_min_batches) \
-        & (ewma > ref["mean"] + cfg.drift_kappa * sd)
-    # swap at most the WORST signalling member per batch
-    worst = torch.argmax(torch.where(signal, ewma, float("-inf")))
-    drift = signal & (torch.arange(T, device=dev) == worst)
-    decay_f32 = torch.tensor(cfg.drift_decay, dtype=torch.float32, device=dev)
-    decay = torch.where(frac >= 1.0, decay_f32, decay_f32 ** frac)
-    decayed = {"n": decay * ref["n"], "mean": ref["mean"],
-               "m2": decay * ref["m2"]}
-    observed = stats.observe(decayed, member_mse, frac)
-    # a signalling member's reference freezes (no decay, no observe)
-    win = {k: torch.where(signal, ref[k], observed[k]) for k in observed}
+    with span("forest.drift"):
+        live = row_w.sum() > 0
+        frac = torch.where(live, torch.clamp(wsum / max(float(B), 1.0),
+                                             max=1.0), 0.0)
+        alpha = cfg.drift_alpha * frac
+        first = (state["err_win"]["n"] < 0.5) & live
+        ewma = torch.where(first, member_mse,
+                           (1.0 - alpha) * state["err_ewma"]
+                           + alpha * member_mse)
+        ref = state["err_win"]
+        sd = torch.sqrt(torch.clamp(stats.variance(ref), min=1e-12))
+        signal = (ref["n"] >= cfg.drift_min_batches) \
+            & (ewma > ref["mean"] + cfg.drift_kappa * sd)
+        # swap at most the WORST signalling member per batch
+        worst = torch.argmax(torch.where(signal, ewma, float("-inf")))
+        drift = signal & (torch.arange(T, device=dev) == worst)
+        decay_f32 = torch.tensor(cfg.drift_decay, dtype=torch.float32,
+                                 device=dev)
+        decay = torch.where(frac >= 1.0, decay_f32, decay_f32 ** frac)
+        decayed = {"n": decay * ref["n"], "mean": ref["mean"],
+                   "m2": decay * ref["m2"]}
+        observed = stats.observe(decayed, member_mse, frac)
+        # a signalling member's reference freezes (no decay, no observe)
+        win = {k: torch.where(signal, ref[k], observed[k]) for k in observed}
+        swaps = bool(drift.any())    # host branch: most batches swap nobody
 
     # --- swap: reset the drifting member (fresh tree, subspace, window) --
     feat_mask = state["feat_mask"]
-    if bool(drift.any()):    # host branch: most batches swap nobody
-        fresh = _fresh_trees(cfg, T, dev)
+    if swaps:
+        count("forest.swaps")
+        with span("forest.swap"):
+            fresh = _fresh_trees(cfg, T, dev)
 
-        def swap(a, f):
-            return torch.where(drift.reshape((T,) + (1,) * (a.dim() - 1)),
-                               f, a)
-        trees = {k: ({kk: swap(vv, fresh[k][kk]) for kk, vv in v.items()}
-                     if isinstance(v, dict) else swap(v, fresh[k]))
-                 for k, v in trees.items()}
-        feat_mask = torch.where(drift[:, None], new_masks, feat_mask)
-    state = {
-        "trees": trees,
-        "feat_mask": feat_mask,
-        "rng": gen.get_state(),
-        "err_win": {k: torch.where(drift, 0.0, v) for k, v in win.items()},
-        "err_ewma": torch.where(drift, 0.0, ewma),
-        "resets": state["resets"] + drift.to(torch.int32),
-    }
-    # vote weights refresh ONCE per learned batch
-    state["vote_w"] = vote_weights(cfg, state)
+            def swap(a, f):
+                return torch.where(
+                    drift.reshape((T,) + (1,) * (a.dim() - 1)), f, a)
+            trees = {k: ({kk: swap(vv, fresh[k][kk]) for kk, vv in v.items()}
+                         if isinstance(v, dict) else swap(v, fresh[k]))
+                     for k, v in trees.items()}
+            feat_mask = torch.where(drift[:, None], new_masks, feat_mask)
+    with span("forest.vote"):
+        state = {
+            "trees": trees,
+            "feat_mask": feat_mask,
+            "rng": gen.get_state(),
+            "err_win": {k: torch.where(drift, 0.0, v)
+                        for k, v in win.items()},
+            "err_ewma": torch.where(drift, 0.0, ewma),
+            "resets": state["resets"] + drift.to(torch.int32),
+        }
+        # vote weights refresh ONCE per learned batch
+        state["vote_w"] = vote_weights(cfg, state)
     return state, {"member_mse": member_mse, "forest_mse": forest_mse,
                    "drift": drift}
 

@@ -49,6 +49,7 @@ from repro_torch.core import decide as dc
 from repro_torch.core import stats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.perf.spans import count, span
 
 TreeState = Dict[str, object]
 
@@ -267,14 +268,26 @@ def _apply_splits(cfg: HTRConfig, trees, merit, thr_all, attempt,
     in place.  The children's target statistics come from the grouped
     two-pass form, or under the oracle engine from the reference seed's
     merge of the left bins and its subtraction from the table total."""
-    T, M = attempt.shape
-    want, best_f, dec_new = dc.decide(cfg, trees, merit, attempt, feat_mask)
+    with span("forest.decide"):
+        want, best_f, dec_new = dc.decide(cfg, trees, merit, attempt,
+                                          feat_mask)
+    with span("forest.apply"):
+        return _write_splits(cfg, trees, thr_all, attempt, want, best_f,
+                             dec_new)
+
+
+def _write_splits(cfg: HTRConfig, trees, thr_all, attempt, want, best_f,
+                  dec_new):
+    """Child allocation and writes of :func:`_apply_splits`: the leaves in
+    ``want`` split on feature ``best_f`` while the tree has room."""
+    M = attempt.shape[1]
     best_c = torch.gather(thr_all, -1, best_f[..., None])[..., 0]
     # vectorized allocation of 2 children per splitting leaf
     k = torch.cumsum(want.to(torch.int32), -1, dtype=torch.int32) - 1
     base = trees["n_nodes"][:, None] + 2 * k
     can = want & (base + 1 < M)
     pt, pm = torch.nonzero(can, as_tuple=True)        # the leaves that split
+    count("forest.splits", pt.numel())
     c0 = base[pt, pm].long()
     kt, km = torch.cat([pt, pt]), torch.cat([c0, c0 + 1])   # their children
 
@@ -357,27 +370,31 @@ def attempt_trees(cfg: HTRConfig, trees, feat_mask=None):
     the folded T*M table axis, then the decision and the writes.  The
     oracle engine has no capacity gate before its query (a full tree's
     attempts still reset their grace counters, as in the reference)."""
-    T, M = trees["is_leaf"].shape
-    F = cfg.n_features
-    attempt = attempt_mask(cfg, trees)
-    if cfg.split_backend != "oracle":
-        attempt = attempt & (trees["n_nodes"][:, None] + 1 < M)
-    if not bool(attempt.any()):   # host branch: the reference's lax.cond
-        return trees
-    fold = lambda a: a.reshape((T * M,) + a.shape[2:])
-    ao_y = {k: fold(v) for k, v in trees["ao_y"].items()}
-    ao_sum_x = fold(trees["ao_sum_x"])
-    if cfg.split_backend == "oracle":
-        return _do_attempts_oracle(cfg, trees, ao_y, ao_sum_x, attempt,
-                                   feat_mask)
-    if cfg.observer_backend == "sketch":
-        # sorted centroids ARE a sorted bin table: the QO query, the
-        # decision and the writes ride unchanged over the K-slot planes
-        ao_y, ao_sum_x = kops.sketch_to_bins(ao_y, ao_sum_x)
-    merit, thr = kops.forest_best_splits(ao_y, ao_sum_x, attempt.reshape(-1),
-                                         compact=cfg.compact_query)
-    return _apply_splits(cfg, trees, merit.reshape(T, M, F),
-                         thr.reshape(T, M, F), attempt, feat_mask)
+    with span("forest.attempt"):
+        T, M = trees["is_leaf"].shape
+        F = cfg.n_features
+        attempt = attempt_mask(cfg, trees)
+        if cfg.split_backend != "oracle":
+            attempt = attempt & (trees["n_nodes"][:, None] + 1 < M)
+        if not bool(attempt.any()):   # host branch: the reference's lax.cond
+            return trees
+        count("forest.attempt_steps")
+        fold = lambda a: a.reshape((T * M,) + a.shape[2:])
+        ao_y = {k: fold(v) for k, v in trees["ao_y"].items()}
+        ao_sum_x = fold(trees["ao_sum_x"])
+        if cfg.split_backend == "oracle":
+            return _do_attempts_oracle(cfg, trees, ao_y, ao_sum_x, attempt,
+                                       feat_mask)
+        with span("forest.query"):
+            if cfg.observer_backend == "sketch":
+                # sorted centroids ARE a sorted bin table: the QO query, the
+                # decision and the writes ride unchanged over the K-slot
+                # planes
+                ao_y, ao_sum_x = kops.sketch_to_bins(ao_y, ao_sum_x)
+            merit, thr = kops.forest_best_splits(
+                ao_y, ao_sum_x, attempt.reshape(-1), compact=cfg.compact_query)
+        return _apply_splits(cfg, trees, merit.reshape(T, M, F),
+                             thr.reshape(T, M, F), attempt, feat_mask)
 
 
 def _lift(state):

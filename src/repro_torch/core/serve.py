@@ -21,6 +21,7 @@ import torch
 from repro_torch import device as dv
 from repro_torch.core.forest import vote_combine
 from repro_torch.kernels import ops as kops
+from repro_torch.perf.spans import count, span
 
 __all__ = ["Snapshot", "SnapshotValidationError", "freeze",
            "validate_snapshot", "predict_snapshot"]
@@ -182,12 +183,20 @@ def freeze(state, *, version: int = 0, step: int = 0,
 def predict_snapshot(snap: Snapshot, X, *, device=None) -> torch.Tensor:
     """Serve a frozen snapshot: X (B, F) -> (B,) f32 predictions, equal bit
     for bit to the live ``predict`` of the state that was frozen."""
-    dev = dv.resolve(device)
-    dv.check_on(snap.feature, dev, "snapshot")
-    X = torch.as_tensor(X, dtype=torch.float32, device=dev).contiguous()
-    leaf = kops.forest_route(snap.feature, snap.threshold, snap.child,
-                             snap.is_leaf, X, depth=snap.depth)
-    member = torch.gather(snap.leaf_mean, 1, leaf.long())          # (T, B)
-    if snap.single:
-        return member[0]
-    return vote_combine(member, snap.vote_w)
+    with span("serve.predict_snapshot"):
+        dev = dv.resolve(device)
+        dv.check_on(snap.feature, dev, "snapshot")
+        with span("serve.h2d"):
+            X = torch.as_tensor(X, dtype=torch.float32,
+                                device=dev).contiguous()
+        count("serve.requests")
+        count("serve.rows", X.shape[0])
+        with span("serve.route"):
+            leaf = kops.forest_route(snap.feature, snap.threshold,
+                                     snap.child, snap.is_leaf, X,
+                                     depth=snap.depth)
+        with span("serve.vote"):
+            member = torch.gather(snap.leaf_mean, 1, leaf.long())  # (T, B)
+            if snap.single:
+                return member[0]
+            return vote_combine(member, snap.vote_w)

@@ -31,6 +31,7 @@ from repro_torch.core import sketch as sketch_lib
 from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
                                  qo_route, qo_update_leaves, sketch_compact)
 from repro_torch.kernels import qo_update as qo_update_planes
+from repro_torch.perf.spans import count
 
 __all__ = ["qo_update", "qo_best_split", "forest_bin_ids", "forest_update",
            "forest_merge", "forest_best_splits", "forest_route", "route",
@@ -218,6 +219,7 @@ def forest_best_splits(ao_y, ao_sum_x, attempt, compact: bool = True, *,
                        device=dev)
     thr = torch.zeros((N, F), dtype=torch.float32, device=dev)
     rows = torch.nonzero(attempt).reshape(-1)
+    count("forest.attempted_leaves", rows.numel())
     if rows.numel() == 0:
         return merit, thr
     mk, tk = qo_query_batched.best_splits(ao_y, ao_sum_x,

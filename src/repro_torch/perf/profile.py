@@ -3,7 +3,11 @@
 The counterpart of the reference's ``repro.perf.profile``:
 
 * :func:`trace` -- ``torch.profiler`` around a block, written as a Chrome
-  trace (Perfetto, ``chrome://tracing``) into a directory;
+  trace (Perfetto, ``chrome://tracing``) into a directory, with the
+  block's stage counters beside it;
+* :func:`span`, :func:`count`, :func:`counts` -- the stage spans and
+  counters inside the port (:mod:`repro_torch.perf.spans`), live only
+  while a profiler records;
 * :func:`op_costs` -- flops and bytes of one call counted by
   :mod:`repro_torch.perf.opcost`, the peak device memory, and the least
   time the card could take for the counted work (:func:`bound`: bytes
@@ -17,6 +21,21 @@ its full 700 W: 3.35 TB/s of HBM, 67 TFLOP/s of float32 outside the
 tensor cores, 989 TFLOP/s of dense bf16 on the tensor cores and 450 GB/s
 of NVLink 4 a direction (the dry-run's roofline terms).  A card set below 700 W (``nvidia-smi``'s ``power.limit``)
 runs slower; state its limit beside any share of these.
+
+Reading a live forest.  Under :func:`trace`, every ``forest.update``
+records its stages as nested spans (``forest.predict``, ``forest.bag``,
+``forest.route``, ``forest.stats``, ``forest.absorb``, ``forest.attempt``
+with its children ``forest.query``, ``forest.decide`` and
+``forest.apply`` on the steps that attempt a split, ``forest.drift``,
+``forest.swap`` on the steps that swap a member, ``forest.vote``), and
+every ``predict_snapshot`` records ``serve.predict_snapshot`` with
+``serve.h2d``, ``serve.route`` and ``serve.vote``.  The counters file
+``counters_<pid>_<n>.json`` written beside ``trace_<pid>_<n>.json``
+holds the block's ``forest.steps``, ``forest.attempt_steps``,
+``forest.attempted_leaves``, ``forest.splits``, ``forest.swaps``,
+``serve.requests`` and ``serve.rows``: from them, the share of attempted
+leaves that split and the swaps a step; from the trace, each stage's
+host time and the device's idle gaps inside it.
 """
 from __future__ import annotations
 
@@ -28,10 +47,12 @@ import os
 import torch
 
 from repro_torch.perf import opcost
+from repro_torch.perf.spans import count, counts, reset_counts, span
 
-__all__ = ["trace", "op_costs", "profile_ops", "write_report",
-           "device_times", "device_events", "bound", "HBM_BYTES_PER_S",
-           "FP32_FLOPS", "BF16_FLOPS", "NVLINK_BYTES_PER_S"]
+__all__ = ["trace", "span", "count", "counts", "reset_counts", "op_costs",
+           "profile_ops", "write_report", "device_times", "device_events",
+           "bound", "HBM_BYTES_PER_S", "FP32_FLOPS", "BF16_FLOPS",
+           "NVLINK_BYTES_PER_S"]
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
@@ -54,7 +75,9 @@ def bound(nbytes: float, flops: float):
 def trace(logdir: str):
     """Profile the enclosed block (host ops, and device kernels when a card
     is visible) and write it as ``trace_<pid>_<n>.json`` into ``logdir``
-    (created if missing).  Yields the directory.
+    (created if missing), and the block's counters (:func:`counts`, reset
+    on entry) as ``counters_<pid>_<n>.json`` beside it.  Yields the
+    directory.
 
     Keep the block BOUNDED -- a handful of steps, not a benchmark run: the
     profiler holds every event in host memory until the block ends, so
@@ -66,12 +89,15 @@ def trace(logdir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    reset_counts()
     with profile(activities=activities) as prof:
         yield logdir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{os.getpid()}_{next(_TRACES)}.json"))
+    stem = f"{os.getpid()}_{next(_TRACES)}.json"
+    prof.export_chrome_trace(os.path.join(logdir, "trace_" + stem))
+    with open(os.path.join(logdir, "counters_" + stem), "w") as f:
+        json.dump(counts(), f, indent=1, sort_keys=True)
 
 
 def op_costs(fn, *args) -> dict:
