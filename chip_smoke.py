@@ -35,7 +35,7 @@ Seven paths at full width, each fatal on failure:
 Phases:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the eight CUDA sources from ``src/repro_torch/csrc`` (one nvcc
+2. build the nine CUDA sources from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) into ``build/kernels/``, and the latency
    probes ``tools_torch/chase.cu`` beside them (a dependent load in global
    and in shared memory, a dependent observe and merge);
@@ -58,7 +58,10 @@ Phases:
    the single-table absorb also with all 1e6 rows in one bin; the sketch
    compaction (sort, rank and reduce fused) on the sketch forest's merge,
    one launch and no other device op a call, rerun bitwise, and the whole
-   compaction stage timed beside the unfused stage's record; the batched
+   compaction stage timed beside the unfused stage's record; the target
+   statistics kernel (``leaf_stats``) on the step's sort and on a root
+   holding its tree's whole batch, one launch and no other device op a
+   call, rerun bitwise, n exact against the plain version; the batched
    query on the QO forest's attempt set and on the sketch forest's
    (C = K = 16), rerun bitwise; both E-BST kernels (insert and query)
    bitwise against their plain versions on a §5.1 stream of 5,000 rows as
@@ -655,6 +658,68 @@ def _sketch_compact_row(sin):
           f"{PARENT_STAGE_MS[0]} ms a call, device {PARENT_STAGE_MS[1]} ms "
           f"(NVIDIA H100 80GB HBM3, 700 W)", flush=True)
     return row, out_k
+
+
+def _leaf_stats_row(trees, gl, yk, w, what):
+    """Phase 3: the target statistics kernel (``kernels/leaf_stats.py``)
+    on the step's sort of the folded ids ``gl``: one launch and no other
+    device op a call, no id flagged, a rerun bitwise, n and seen exact and
+    mean, M2 within TOL of the plain version (today's composition); the
+    call and the plain version timed, the kernel's device time against
+    its bound.  Returns the kernel's row."""
+    import torch
+    from repro_torch.kernels import _build, leaf_stats, qo_update_leaves
+    from repro_torch.perf import profile
+    T_, M_ = trees["feature"].shape
+    N, R, B_ = T_ * M_, gl.shape[0], yk.shape[0]
+    rows = qo_update_leaves.sort_rows(gl, N)
+    bad = torch.ones(1, dtype=torch.bool, device=gl.device)
+
+    def fresh():
+        return ({k: v.reshape(-1).clone() for k, v in
+                 trees["ystats"].items()},
+                trees["seen_since_attempt"].reshape(-1).clone())
+
+    def kernel(args):
+        return leaf_stats.leaf_stats_kernel(*args, yk, w, rows, bad)
+
+    k1, k2 = fresh(), fresh()
+    before = _build.LAUNCHES["leaf_stats"]
+    ops = _device_kernels(lambda: kernel(k1))
+    if _build.LAUNCHES["leaf_stats"] != before + 1 or len(ops) != 1 \
+            or bool(bad):
+        raise AssertionError(f"leaf_stats ({what}): a call ran {ops}, "
+                             f"{_build.LAUNCHES['leaf_stats'] - before} "
+                             f"launches, flag {bool(bad)}")
+    kernel(k2)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip([*k1[0].values(), k1[1]],
+                               [*k2[0].values(), k2[1]])):
+        raise AssertionError(f"leaf_stats ({what}): a rerun differs")
+    py, ps = leaf_stats.leaf_stats_plain(*fresh(), gl, yk, w, rows, bad)
+    if not (torch.equal(k1[0]["n"], py["n"]) and torch.equal(k1[1], ps)):
+        raise AssertionError(f"leaf_stats ({what}): n or seen differs from "
+                             f"the plain version")
+    err = max(_close(k1[0][k], py[k], f"leaf_stats ({what}) {k}")
+              for k in ("mean", "m2"))
+    bound, by = profile.bound(*leaf_stats.cost(N, R, B_))
+    scratch_k, scratch_p = fresh(), fresh()
+    row = dict(
+        name="leaf_stats", route="cuda",
+        source="src/repro_torch/csrc/leaf_stats.cu", replaces=None,
+        max_abs_err=err, ms=_time_ms(lambda: kernel(scratch_k)),
+        plain_ms=_time_ms(lambda: leaf_stats.leaf_stats_plain(
+            *scratch_p, gl, yk, w, rows, bad)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        device_ms=_device_ms(lambda: kernel(scratch_k)))
+    longest = int(rows[1].diff().max())
+    print(f"[3] leaf_stats ({what}): {N} entries, {R} rows, longest run "
+          f"{longest}: one launch and no other device op a call "
+          f"({ops[0][:40]}), n and seen exact, max abs err {err:.3g}, rerun "
+          f"bitwise equal; the call {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f} ms (bound {bound:.6f} ms, {by}); the "
+          f"plain version {row['plain_ms']:.4f} ms", flush=True)
+    return row
 
 
 def _attempt_rows(cfg, trees, gl, yk, w):
@@ -2327,6 +2392,7 @@ def _phase15(batches, seed, dev):
 #: The kernels of a QO forest step: a substring of each one's device name,
 #: by its launch count's name.
 STEP_KERNELS = {"qo_route": "qo_route_kernel",
+                "leaf_stats": "leaf_stats_kernel",
                 "qo_update_leaves": "qo_update_leaves_pieces_kernel",
                 "qo_query_batched": "qo_query_batched_kernel"}
 
@@ -3348,6 +3414,10 @@ def main(argv=None) -> int:
           f"max abs err {err:.3g}, rerun bitwise equal; device "
           f"{dev_ms:.4f} ms a launch (bound {bound:.5f} ms)", flush=True)
     _absorb_first_batch(cfg, batches, args.seed, dev)
+    rows.append(_leaf_stats_row(trees, gl, yk, w, "the step's sort"))
+    root = gl.clone()
+    root[:B] = 0                        # tree 0 a fresh tree: one root run
+    _leaf_stats_row(trees, root, yk, w, "a root holding its tree's batch")
 
     qrows = _attempt_rows(cfg, trees, gl, yk, w)
     rows.append(_query_row(ty_k, tsx_k, qrows, "QO forest", True))
@@ -3389,7 +3459,8 @@ def main(argv=None) -> int:
     print(f"[4] {STREAM_BATCHES} batches of {B} rows in {secs:.3f} s: "
           f"{STREAM_BATCHES * B / secs:.0f} rows/s")
     print(f"[4] kernels {json.dumps(launches)}", flush=True)
-    for name in ("qo_route", "qo_update_leaves", "qo_query_batched"):
+    for name in ("qo_route", "qo_update_leaves", "leaf_stats",
+                 "qo_query_batched"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     if not (np.isfinite(mse).all() and mse[-1] < mse[0]):

@@ -27,6 +27,7 @@ import torch
 from repro_torch import device as dv
 from repro_torch.core import hoeffding as ht
 from repro_torch.core import stats
+from repro_torch.kernels import leaf_stats as kleaf
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.perf.spans import count, span
@@ -211,16 +212,13 @@ def _fold(a, T, M):
     return a.reshape((T * M,) + a.shape[2:])
 
 
-def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
-    """Route all T members and reduce the batch's per-leaf target stats.
+def _fused_route_sort(cfg: ForestConfig, trees, X):
+    """Route all T members and sort the batch by folded leaf id.
 
-    One route of all T trees, one sort of the global leaf ids
-    ``t*M + leaf`` and one flat segment reduction over them.  w: (T, B).
-    Returns ``(gl, leaf, batch_leaf, rows)``: the (T*B,) folded ids, the
-    (T, B) per-tree ids, the (T, M) Stats of the batch -- the shard-local
-    quantities of the data-parallel protocol, which accumulates them in a
-    delta instead of the trees -- and the ``(order, offsets)`` of the sort,
-    which the absorb walks again."""
+    One route of all T trees and one sort of the global leaf ids ``t*M +
+    leaf``.  Returns ``(gl, leaf, rows)``: the (T*B,) folded ids, the
+    (T, B) per-tree ids and the ``(order, offsets)`` of the sort, which
+    the target statistics and the absorb walk."""
     T, M = trees["feature"].shape
     with span("forest.route"):
         leaf = _route_all(cfg, trees, X)
@@ -228,6 +226,18 @@ def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
         gl = (torch.arange(T, dtype=torch.int32, device=X.device)[:, None]
               * M + leaf).reshape(-1)
         rows = kops.sort_rows(gl, T * M)
+    return gl, leaf, rows
+
+
+def _fused_route_stats(cfg: ForestConfig, trees, X, y, w):
+    """:func:`_fused_route_sort`, then one flat segment reduction of the
+    batch's per-leaf target stats.  w: (T, B).  Returns ``(gl, leaf,
+    batch_leaf, rows)``, ``batch_leaf`` the (T, M) Stats of the batch: the
+    shard-local quantities of the data-parallel protocol, which
+    accumulates them in a delta instead of the trees."""
+    T, M = trees["feature"].shape
+    gl, leaf, rows = _fused_route_sort(cfg, trees, X)
+    with span("forest.stats"):
         batch_leaf = ht.segment_stats(y.repeat(T), gl, T * M, w.reshape(-1),
                                       rows)
     return (gl, leaf, {k: v.reshape(T, M) for k, v in batch_leaf.items()},
@@ -242,7 +252,7 @@ def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
     shard's delta); the quantization grid (radius, origin) always comes
     from ``trees``, so every shard bins alike and the deltas stay
     mergeable.  gl: (T*B,) folded ids and rows their sort, both from
-    :func:`_fused_route_stats`; w: (T, B).  Returns ``(ao_y, ao_sum_x)``:
+    :func:`_fused_route_sort`; w: (T, B).  Returns ``(ao_y, ao_sum_x)``:
     the QO tables are updated in place and returned; under the sketch
     observer new planes."""
     T, M = trees["feature"].shape
@@ -264,12 +274,15 @@ def _fused_absorb_tables(cfg: ForestConfig, ao_y, ao_sum_x, trees, gl,
 
 
 def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
-    """All T member updates as one flat pass: route, per-leaf target stats,
-    absorb (QO tables in place; sketch planes rebound), attempt
-    (``ht.attempt_trees``, which the data-parallel sync runs on merged
-    statistics).  w: (T, B) sample weights.  The oracle engine runs the
-    members one at a time through ``hoeffding.update`` instead, as the
-    reference's ``vmap(hoeffding.update)``."""
+    """All T member updates as one flat pass: route, per-leaf target stats
+    (``kernels/leaf_stats.py``; in place on the card), absorb (QO tables
+    in place; sketch planes rebound), attempt (``ht.attempt_trees``, which
+    the data-parallel sync runs on merged statistics).  w: (T, B) sample
+    weights.  Returns ``(trees, ids)``: ``ids`` is ``(flags, gl, T*M)``
+    for :func:`_any_drift`, whose read checks the step's leaf ids, or None
+    under the oracle engine, which runs the members one at a time through
+    ``hoeffding.update`` instead, as the reference's
+    ``vmap(hoeffding.update)``."""
     if cfg.tree.split_backend == "oracle":
         T = w.shape[0]
         members = [ht.update(cfg.tree,
@@ -281,18 +294,42 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
         return {k: ({kk: torch.stack([m[k][kk] for m in members])
                      for kk in v} if isinstance(v, dict)
                     else torch.stack([m[k] for m in members]))
-                for k, v in trees.items()}
-    gl, _, batch_leaf, rows = _fused_route_stats(cfg, trees, X, y, w)
+                for k, v in trees.items()}, None
+    T, M = trees["feature"].shape
+    gl, _, rows = _fused_route_sort(cfg, trees, X)
+    # [drift.any(), ids out of range]: one host read carries both
+    flags = torch.empty(2, dtype=torch.bool, device=X.device)
     with span("forest.stats"):
+        ystats, seen = kleaf.leaf_stats(
+            {k: v.reshape(-1) for k, v in trees["ystats"].items()},
+            trees["seen_since_attempt"].reshape(-1), gl, y, w.reshape(-1),
+            rows, flags[1:])
+        if X.is_cuda:
+            count("forest.leaf_stats")
         trees = dict(trees,
-                     ystats=stats.merge(trees["ystats"], batch_leaf),
-                     seen_since_attempt=trees["seen_since_attempt"]
-                     + batch_leaf["n"])
+                     ystats={k: v.reshape(T, M) for k, v in ystats.items()},
+                     seen_since_attempt=seen.reshape(T, M))
     ao_y, ao_sum_x = _fused_absorb_tables(cfg, trees["ao_y"],
                                           trees["ao_sum_x"], trees, gl, X, y,
                                           w, rows)
     trees = dict(trees, ao_y=ao_y, ao_sum_x=ao_sum_x)
-    return ht.attempt_trees(cfg.tree, trees, feat_mask)
+    return ht.attempt_trees(cfg.tree, trees, feat_mask), (flags, gl, T * M)
+
+
+def _any_drift(drift, ids) -> bool:
+    """``bool(drift.any())``, the step's one host read.  With ``ids``
+    (``(flags, gl, n)`` from :func:`_learn`) the same read carries the
+    target statistics' check of the folded leaf ids, ``flags[1]``: a
+    two-element read in place of one, and a RuntimeError naming the ids
+    outside [0, n)."""
+    if ids is None:
+        return bool(drift.any())
+    flags, gl, n = ids
+    torch.any(drift, 0, keepdim=True, out=flags[:1])
+    swaps, bad = flags.tolist()
+    if bad:
+        raise kleaf.out_of_range(gl, n)
+    return swaps
 
 
 def update(cfg: ForestConfig, state: ForestState, X, y, w=None, *,
@@ -352,7 +389,8 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
             new_masks = torch.as_tensor(new_masks, dtype=torch.bool,
                                         device=dev)
         w_learn = bag_w * row_w[None, :]
-    trees = _learn(cfg, state["trees"], state["feat_mask"], X, y, w_learn)
+    trees, ids = _learn(cfg, state["trees"], state["feat_mask"], X, y,
+                        w_learn)
 
     # --- drift: ADWIN-style short-vs-long window test per member ---------
     # compared BEFORE this batch folds into the long window; both windows
@@ -381,7 +419,7 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
         observed = stats.observe(decayed, member_mse, frac)
         # a signalling member's reference freezes (no decay, no observe)
         win = {k: torch.where(signal, ref[k], observed[k]) for k in observed}
-        swaps = bool(drift.any())    # host branch: most batches swap nobody
+        swaps = _any_drift(drift, ids)  # host branch: most batches swap nobody
 
     # --- swap: reset the drifting member (fresh tree, subspace, window) --
     feat_mask = state["feat_mask"]

@@ -31,11 +31,12 @@ with its children ``forest.query``, ``forest.decide`` and
 every ``predict_snapshot`` records ``serve.predict_snapshot`` with
 ``serve.h2d``, ``serve.route`` and ``serve.vote``.  The counters file
 ``counters_<pid>_<n>.json`` written beside ``trace_<pid>_<n>.json``
-holds the block's ``forest.steps``, ``forest.attempt_steps``,
-``forest.attempted_leaves``, ``forest.splits``, ``forest.swaps``,
-``serve.requests`` and ``serve.rows``: from them, the share of attempted
-leaves that split and the swaps a step; from the trace, each stage's
-host time and the device's idle gaps inside it.
+holds the block's ``forest.steps``, ``forest.leaf_stats`` (steps whose
+target statistics went through ``kernels/leaf_stats.py``'s kernel),
+``forest.attempt_steps``, ``forest.attempted_leaves``, ``forest.splits``,
+``forest.swaps``, ``serve.requests`` and ``serve.rows``: from them, the
+share of attempted leaves that split and the swaps a step; from the
+trace, each stage's host time and the device's idle gaps inside it.
 """
 from __future__ import annotations
 

@@ -11,6 +11,8 @@ must match exactly; f32 statistics, merits and thresholds within 1e-4
 ``TestOnCard`` holds each CUDA kernel against its plain version; it needs
 a GPU and skips without one.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +22,9 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.core import sketch as tsk
-from repro_torch.kernels import (qo_merge, qo_query, qo_query_batched,
-                                 qo_route, qo_update, qo_update_leaves,
-                                 sketch_compact)
+from repro_torch.kernels import (leaf_stats, qo_merge, qo_query,
+                                 qo_query_batched, qo_route, qo_update,
+                                 qo_update_leaves, sketch_compact)
 from repro_torch.kernels.qo_update_leaves import xla_int32
 
 TOL = 1e-4
@@ -399,6 +401,144 @@ def test_sort_rows_offsets_and_out_of_range_ids():
         assert int(off[-1] - off[0]) == 299
         with pytest.raises(RuntimeError, match="lengths"):
             tht.segment_stats(y, torch.tensor(g), 12, w)
+
+
+def model_leaf_stats(ystats, seen, rows, y, w):
+    """``csrc/leaf_stats.cu``'s order in float32: lane l of an entry's warp
+    sums the entry's sorted rows l, l + 32, ... in order, a xor butterfly
+    over lane offsets 16 .. 1 folds the 32 lanes, mean = sum wy / n, and a
+    second pass sums w (y - mean)^2 the same way; then ``stats.merge``
+    into every running entry and n added to ``seen``.  CPU tensors in,
+    new ``(ystats, seen)`` out."""
+    from repro_torch.core import stats as tst
+    order, offsets = (t.cpu().long() for t in rows)
+    N, B = seen.shape[0], y.shape[0]
+    at = torch.arange(int(offsets[0]), int(offsets[-1]))
+    e = torch.repeat_interleave(torch.arange(N), offsets.diff())
+    pos = at - offsets[e]
+    lane, step = pos % 32, pos // 32
+    r = order[at]
+    wv, yv = w.cpu()[r], y.cpu()[r % B]
+    butterfly = [torch.arange(32) ^ off for off in (16, 8, 4, 2, 1)]
+
+    def lanes_sum(v):
+        acc = torch.zeros((N, 32), dtype=torch.float32)
+        for s_ in range(int(step.max()) + 1 if step.numel() else 0):
+            k = step == s_
+            acc[e[k], lane[k]] = acc[e[k], lane[k]] + v[k]
+        for perm in butterfly:
+            acc = acc + acc[:, perm]
+        return acc[:, 0]
+
+    n, sy = lanes_sum(wv), lanes_sum(wv * yv)
+    mean = torch.where(n > 0, sy / torch.where(n > 0, n, 1.0), 0.0)
+    d = yv - mean[e]
+    m2 = torch.where(n > 0, lanes_sum(wv * (d * d)), 0.0)
+    batch = {"n": n, "mean": mean, "m2": m2}
+    return (tst.merge({k: v.cpu() for k, v in ystats.items()}, batch),
+            seen.cpu() + n)
+
+
+def leaf_stats_case(name):
+    """(ystats, seen, gl, y, w) of one call: running statistics on every
+    entry (some empty), integer Poisson weights with zero-weight rows.
+    ``whole_batch``: tree 0's root holds its whole 4,096-row batch (a
+    fresh tree) beside a tree whose rows spread; ``single_rows``: runs of
+    one row between empty runs; ``zero_weight``: runs whose rows all weigh
+    0 beside runs of one live row among dead ones; ``full``: the main
+    path's T*M = 10,230 entries and B = 4,096 rows, one tree fresh."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    T, M, B = {"whole_batch": (2, 7, 4096), "single_rows": (3, 40, 10),
+               "zero_weight": (2, 15, 64), "full": (10, 1023, 4096)}[name]
+    if name == "whole_batch":
+        leaf = np.stack([np.zeros(B), rng.integers(0, M, B)])
+    elif name == "single_rows":
+        leaf = np.stack([rng.permutation(M)[:B] for _ in range(T)])
+    elif name == "zero_weight":
+        leaf = rng.integers(0, 4, (T, B))
+    else:
+        # a spread over a tree's leaves as a grown tree routes: skewed
+        p = rng.pareto(1.0, M) + 1e-3
+        leaf = np.stack([rng.choice(M, B, p=p / p.sum()) for _ in range(T)])
+        leaf[3] = 0
+    gl = (np.arange(T)[:, None] * M + leaf).astype(np.int32).reshape(-1)
+    w = rng.poisson(6.0, T * B).astype(np.float32)
+    w[rng.random(T * B) < 0.2] = 0.0
+    if name == "zero_weight":
+        w[leaf.reshape(-1) == 1] = 0.0
+        w[(leaf.reshape(-1) == 2)] = 0.0
+        w[np.flatnonzero(leaf.reshape(-1) == 2)[:1]] = 3.0
+    y = rng.normal(1.5, 2.0, B).astype(np.float32)
+    n = np.where(rng.random(T * M) < 0.7,
+                 rng.integers(1, 5000, T * M), 0).astype(np.float32)
+    ystats = {"n": n,
+              "mean": np.where(n > 0, rng.normal(1.0, 2.0, T * M), 0),
+              "m2": np.where(n > 0, n * rng.uniform(0.5, 5.0, T * M), 0)}
+    seen = rng.integers(0, 300, T * M).astype(np.float32)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    return ({k: t(v) for k, v in ystats.items()}, t(seen),
+            torch.tensor(gl), t(y), t(w))
+
+
+LEAF_STATS_CASES = ("whole_batch", "single_rows", "zero_weight", "full")
+
+
+@pytest.mark.parametrize("name", LEAF_STATS_CASES)
+def test_leaf_stats_order_model_matches_plain(name):
+    """The kernel's order against the plain version (today's composition:
+    ``segment_stats``, ``stats.merge``, the seen add): n and seen exact
+    (integer weights), mean and M2 within 1e-4 -- the two sum each run in
+    another order (sequential against 32 lanes and a butterfly), which
+    moves a 4,096-row float32 sum by about 1e-6 of its size; an entry the
+    batch missed is ``stats.merge`` with an empty batch, bit for bit."""
+    from repro_torch.core import stats as tst
+    ystats, seen, gl, y, w = leaf_stats_case(name)
+    N = seen.shape[0]
+    rows = tops.sort_rows(gl, N)
+    bad = torch.ones(1, dtype=torch.bool)
+    py, ps = leaf_stats.leaf_stats(ystats, seen, gl, y, w, rows, bad)
+    assert not bool(bad)
+    my, ms = model_leaf_stats(ystats, seen, rows, y, w)
+    assert torch.equal(my["n"], py["n"]) and torch.equal(ms, ps)
+    for k in ("mean", "m2"):
+        torch.testing.assert_close(my[k], py[k], rtol=TOL, atol=TOL)
+    empty = rows[1].diff() == 0
+    assert bool(empty.any())
+    untouched = tst.merge(ystats, tst.init((N,)))
+    for k in ("n", "mean", "m2"):
+        assert torch.equal(my[k][empty], untouched[k][empty]), k
+        assert torch.equal(py[k][empty], untouched[k][empty]), k
+    if name == "whole_batch":
+        assert int(rows[1][1] - rows[1][0]) == y.shape[0]
+    if name == "zero_weight":
+        dead = (rows[1].diff() > 0) & (ms - seen == 0)
+        assert bool(dead.any())
+        for k in ("n", "mean", "m2"):
+            assert torch.equal(my[k][dead], untouched[k][dead]), k
+
+
+def test_leaf_stats_plain_flags_and_refuses_out_of_range_ids():
+    """The plain version raises on an id outside [0, N) (the segment sums'
+    length check) after writing ``bad``; the forest step's read of the
+    flag names the ids."""
+    from repro_torch.core import forest as tfr
+    ystats, seen, gl, y, w = leaf_stats_case("zero_weight")
+    N = seen.shape[0]
+    for planted in (N, -1):
+        g = gl.clone()
+        g[17] = planted
+        bad = torch.zeros(1, dtype=torch.bool)
+        with pytest.raises(RuntimeError, match="lengths"):
+            leaf_stats.leaf_stats(ystats, seen, g, y, w,
+                                  tops.sort_rows(g, N), bad)
+        assert bool(bad)
+        flags = torch.tensor([False, True])
+        with pytest.raises(RuntimeError,
+                           match=rf"outside \[0, {N}\): \[{planted}\]"):
+            tfr._any_drift(torch.zeros(2, dtype=torch.bool), (flags, g, N))
+    flags = torch.zeros(2, dtype=torch.bool)
+    assert tfr._any_drift(torch.tensor([False, True]), (flags, gl, N))
+    assert not tfr._any_drift(torch.tensor([False, False]), (flags, gl, N))
 
 
 def model_qo_update(table, x, y, w):
@@ -818,6 +958,58 @@ def test_query_all_quiet_queries_nothing(monkeypatch):
     assert torch.isneginf(merit).all() and (thr == 0).all()
 
 
+#: Blocking runtime calls, as the benchmark's trace reader counts them.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+              "cuCtxSynchronize")
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _flat(tree, prefix=""):
+    """``{path: CPU tensor}`` of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree.cpu()}
+
+
+def friedman(rng, B, F):
+    """Friedman #1 over F uniform features, noise sd 1."""
+    X = rng.random((B, F)).astype(np.float32)
+    y = (10 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 20 * (X[:, 2] - 0.5) ** 2
+         + 10 * X[:, 3] + 5 * X[:, 4] + rng.normal(0, 1, B))
+    return X, y.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _grown_forest(dev):
+    """The stable cell's forest (River's ARF defaults on the QO observer:
+    T = 10, M = 1023, F = 16, C = 64, 4,096-row batches) after 64 batches
+    of Friedman #1, and a next batch."""
+    from repro_torch.core import forest as tfr
+    from repro_torch.core import hoeffding as tht
+    tree = tht.HTRConfig(n_features=16, max_nodes=1023, n_bins=64,
+                         grace_period=50, delta=0.01, tau=0.05, max_depth=12,
+                         r0=0.05, sigma_k=2.0)
+    cfg = tfr.ForestConfig(tree=tree, n_trees=10, lam=6.0, subspace=0.25,
+                           vote="mean")
+    rng = np.random.default_rng(64)
+    state = tfr.init_forest(cfg, 64, device=dev)
+    for _ in range(64):
+        state, _ = tfr.update(cfg, state, *friedman(rng, 4096, 16),
+                              device=dev)
+    X, y = friedman(rng, 4096, 16)
+    return cfg, state, (torch.tensor(X, device=dev),
+                        torch.tensor(y, device=dev))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -963,6 +1155,140 @@ class TestOnCard:
                 torch.zeros((B, F), device=card), ones, ones)
         with pytest.raises(RuntimeError, match="lengths"):
             tht.segment_stats(ones, leaf, N, ones)
+
+    @staticmethod
+    def _leaf_stats_on_card(card, ystats, seen, gl, y, w, rows, fn=None):
+        """One call on copies on the card: (ystats, seen, bad)."""
+        on = lambda t: t.to(card).clone()
+        bad = torch.ones(1, dtype=torch.bool, device=card)
+        ky = {k: on(v) for k, v in ystats.items()}
+        out = (fn or leaf_stats.leaf_stats)(ky, on(seen), gl.to(card),
+                                            on(y), on(w), rows, bad)
+        torch.cuda.synchronize()
+        return out[0], out[1], bad
+
+    @pytest.mark.parametrize("name", LEAF_STATS_CASES)
+    def test_leaf_stats_kernel(self, card, name):
+        """Bitwise equal to the float32 model of its order; against the
+        plain version n and seen exact, mean and M2 within 1e-4 (the
+        order's test on the CPU says why); in place, one launch a call, no
+        id flagged, and a rerun gives the same bits."""
+        ystats, seen, gl, y, w = leaf_stats_case(name)
+        rows = tops.sort_rows(gl.to(card), seen.shape[0])
+        bits = lambda t: t.cpu().view(torch.int32)
+        before = _build.LAUNCHES["leaf_stats"]
+        ky, ks, bad = self._leaf_stats_on_card(card, ystats, seen, gl, y, w,
+                                               rows)
+        assert _build.LAUNCHES["leaf_stats"] == before + 1
+        assert not bool(bad)
+        my, ms = model_leaf_stats(ystats, seen, rows, y, w)
+        for k in ("n", "mean", "m2"):
+            assert torch.equal(bits(ky[k]), bits(my[k])), k
+        assert torch.equal(bits(ks), bits(ms))
+        py, ps, _ = self._leaf_stats_on_card(
+            card, ystats, seen, gl, y, w, rows, leaf_stats.leaf_stats_plain)
+        assert torch.equal(ky["n"], py["n"]) and torch.equal(ks, ps)
+        for k in ("mean", "m2"):
+            torch.testing.assert_close(ky[k], py[k], rtol=TOL, atol=TOL)
+        again_y, again_s, _ = self._leaf_stats_on_card(card, ystats, seen, gl,
+                                                       y, w, rows)
+        assert _build.LAUNCHES["leaf_stats"] == before + 2
+        for k in ("n", "mean", "m2"):
+            assert torch.equal(bits(again_y[k]), bits(ky[k])), k
+        assert torch.equal(bits(again_s), bits(ks))
+        # in place: the kernel returns the tensors it was given
+        t = {k: v.to(card) for k, v in ystats.items()}
+        s_ = seen.to(card)
+        out = leaf_stats.leaf_stats_kernel(t, s_, y.to(card), w.to(card),
+                                           rows, bad)
+        assert out[0] is t and out[1] is s_
+        assert torch.equal(bits(t["mean"]), bits(ky["mean"]))
+
+    def test_leaf_stats_kernel_flags_out_of_range_ids(self, card):
+        """An id outside [0, N) lies in no run: the kernel sets the flag
+        (and the in-range entries still merge)."""
+        ystats, seen, gl, y, w = leaf_stats_case("zero_weight")
+        N = seen.shape[0]
+        for planted in (N, -1):
+            g = gl.clone()
+            g[17] = planted
+            rows = tops.sort_rows(g.to(card), N)
+            _, _, bad = self._leaf_stats_on_card(card, ystats, seen, g, y, w,
+                                                 rows)
+            assert bool(bad), planted
+
+    def test_forest_update_leaf_stats(self, card, monkeypatch):
+        """One ``forest.update`` at the stable cell's shape (T = 10, M =
+        1023, F = 16, C = 64, B = 4,096, trees grown over 64 batches)
+        against the same step on today's composition (the plain version
+        on the card): integer, boolean and table arrays and the step's
+        errors bitwise, the target statistics n exact and mean, M2 within
+        1e-4; two runs from one state agree bit for bit."""
+        from repro_torch.core import forest as tfr
+        cfg, state, (X, y) = _grown_forest(card)
+        runs = [tfr.update(cfg, _clone(state), X, y, device=card)
+                for _ in range(2)]
+        monkeypatch.setattr(tfr.kleaf, "leaf_stats",
+                            leaf_stats.leaf_stats_plain)
+        plain = tfr.update(cfg, _clone(state), X, y, device=card)
+        flat = [_flat({"state": st, "aux": aux}) for st, aux in
+                runs + [plain]]
+        assert flat[0].keys() == flat[2].keys()
+        for key, a in flat[0].items():
+            assert torch.equal(a, flat[1][key]), key
+            b = flat[2][key]
+            if key.startswith(("state/trees/ystats/mean",
+                               "state/trees/ystats/m2")):
+                torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+            else:
+                assert torch.equal(a, b), key
+
+    def test_forest_update_out_of_range_leaf_id_raises(self, card,
+                                                       monkeypatch):
+        """A folded leaf id planted outside [0, T*M) in the step's sort
+        raises a RuntimeError naming it, in that same ``update``."""
+        from repro_torch.core import forest as tfr
+        cfg, state, (X, y) = _grown_forest(card)
+        T, M = cfg.n_trees, cfg.tree.max_nodes
+        orig = tfr._fused_route_sort
+
+        def planted(cfg_, trees, X_):
+            gl, leaf, _ = orig(cfg_, trees, X_)
+            gl = gl.clone()
+            gl[5] = T * M
+            return gl, leaf, tops.sort_rows(gl, T * M)
+        monkeypatch.setattr(tfr, "_fused_route_sort", planted)
+        with pytest.raises(RuntimeError,
+                           match=rf"outside \[0, {T * M}\): \[{T * M}\]"):
+            tfr.update(cfg, _clone(state), X, y, device=card)
+
+    def test_forest_stats_has_no_sync_under_profile(self, card, tmp_path):
+        """Under ``perf.profile.trace`` the ``forest.stats`` spans hold no
+        blocking runtime call (the step's syncs sit in other stages, the
+        drift read among them) and ``forest.leaf_stats`` equals
+        ``forest.steps``."""
+        import glob
+        import json
+        from repro_torch.core import forest as tfr
+        from repro_torch.perf import profile
+        cfg, state, (X, y) = _grown_forest(card)
+        state = _clone(state)
+        with profile.trace(str(tmp_path)):
+            for _ in range(3):
+                state, _ = tfr.update(cfg, state, X, y, device=card)
+        counts = json.load(open(glob.glob(str(tmp_path / "counters_*"))[0]))
+        assert counts["forest.leaf_stats"] == counts["forest.steps"] == 3
+        events = json.load(open(glob.glob(str(tmp_path / "trace_*"))[0]))[
+            "traceEvents"]
+        spans_of = lambda name: [(e["ts"], e["ts"] + e["dur"])
+                                 for e in events if e.get("name") == name
+                                 and e.get("cat") == "user_annotation"]
+        syncs = [e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+                 and e.get("name") in SYNC_CALLS]
+        within = lambda ivs: sum(s <= t <= e for t in syncs for s, e in ivs)
+        assert len(spans_of("forest.stats")) == 6
+        assert within(spans_of("forest.drift")) >= 3
+        assert within(spans_of("forest.stats")) == 0
 
     def _query_holds(self, card, tab_y, sum_x, rows):
         """Kernel bitwise equal to the float32 model of its order, and

@@ -28,9 +28,9 @@ from repro_torch.core import multi as tmulti
 from repro_torch.core import qo as tqo
 from repro_torch.core import serve as tsv
 from repro_torch.kernels import _build
-from repro_torch.kernels import (ebst, qo_merge, qo_query, qo_query_batched,
-                                 qo_route, qo_update, qo_update_leaves,
-                                 sketch_compact)
+from repro_torch.kernels import (ebst, leaf_stats, qo_merge, qo_query,
+                                 qo_query_batched, qo_route, qo_update,
+                                 qo_update_leaves, sketch_compact)
 from repro_torch import configs as tcfg
 from repro_torch.data import tokens as ttokens
 from repro_torch.launch import mesh as tmesh
@@ -75,11 +75,12 @@ def test_every_port_module_is_scanned():
             "opcost", "profile", "base", "layers", "ssm", "transformer",
             "model", "adamw", "tokens", "steps", "loop", "train",
             "qwen3_8b", "grok_1_314b", "zamba2_2_7b",
-            "whisper_medium", "mesh", "dryrun", "perf", "hlocost"} <= names
+            "whisper_medium", "mesh", "dryrun", "perf", "hlocost",
+            "leaf_stats"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",
-        "ebst.cu"}
+        "leaf_stats.cu", "ebst.cu"}
     assert set(_build.SOURCES) == {p.stem for p in
                                    (PORT / "csrc").glob("*.cu")}
 
@@ -225,6 +226,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         qo_query.best_kernel(*one)
     with pytest.raises(ValueError, match="qo_merge"):
         qo_merge.merge_kernel(*one, *one)
+    with pytest.raises(ValueError, match="leaf_stats"):
+        leaf_stats.leaf_stats_kernel(
+            {k: torch.zeros(4) for k in ("n", "mean", "m2")}, torch.zeros(4),
+            torch.zeros(2), torch.ones(2), (z[:2], z[:1].repeat(5)),
+            torch.zeros(1, dtype=torch.bool))
     bst = tebst.init(8, device="cpu")
     with pytest.raises(ValueError, match="ebst_insert"):
         ebst.insert_kernel(bst, torch.zeros(2), torch.zeros(2))
@@ -243,6 +249,38 @@ def test_qo_merge_routes_cpu_tensors_to_the_plain_version(monkeypatch):
     out = qo_merge.merge(*planes)
     assert all(torch.equal(a, b) for a, b in
                zip(out, qo_merge.merge_plain(*planes)))
+    assert _build.LAUNCHES == before
+
+
+def test_leaf_stats_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    """``leaf_stats.leaf_stats`` on CPU tensors never reaches the launcher
+    and is the plain composition; a CPU forest step counts no kernel
+    step under a profiler."""
+    from repro_torch.perf import spans
+
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA launch")
+    monkeypatch.setattr(leaf_stats, "leaf_stats_kernel", boom)
+    monkeypatch.setattr(leaf_stats, "_library", boom)
+    before = dict(_build.LAUNCHES)
+    gl = torch.tensor([3, 0, 3, 1, 4, 4], dtype=torch.int32)
+    ystats = {k: torch.rand(6) for k in ("n", "mean", "m2")}
+    args = (ystats, torch.zeros(6), gl, torch.rand(3), torch.rand(6),
+            qo_update_leaves.sort_rows(gl, 6))
+    bad = torch.ones(1, dtype=torch.bool)
+    out = leaf_stats.leaf_stats(*args, bad)
+    plain = leaf_stats.leaf_stats_plain(*args, torch.ones(1, dtype=bool))
+    assert not bool(bad)
+    assert all(torch.equal(out[0][k], plain[0][k]) for k in ystats)
+    assert torch.equal(out[1], plain[1])
+    spans.reset_counts()
+    state = tfr.init_forest(CFG, device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        tfr.update(CFG, state, np.zeros((4, 3), np.float32),
+                   np.zeros(4, np.float32), device="cpu")
+    assert spans.counts()["forest.steps"] == 1
+    assert "forest.leaf_stats" not in spans.counts()
     assert _build.LAUNCHES == before
 
 
