@@ -8,7 +8,7 @@ import torch
 from conftest import LEARN, SERVE, run_small, small_cell
 
 
-@pytest.mark.parametrize("workload", LEARN + (SERVE,))
+@pytest.mark.parametrize("workload", LEARN + SERVE)
 def test_port_cpu_path_is_correct(workload):
     res = run_small(workload)
     assert res["correct"], res["checks"]
@@ -30,7 +30,7 @@ def test_judged_steps_split_and_swap():
                for r in out["readings"])
 
 
-@pytest.mark.parametrize("workload", LEARN + (SERVE,))
+@pytest.mark.parametrize("workload", LEARN + SERVE)
 def test_control_fails(workload):
     """The reference computed in bfloat16, in the program's place."""
     import run as bench
@@ -84,7 +84,7 @@ def test_serve_altered_answer_fails(monkeypatch):
         out[0] *= 1.01
         return out
     monkeypatch.setattr(port, "predict_snapshot", predict)
-    res = run_small(SERVE)
+    res = run_small(SERVE[0])
     assert not res["correct"], res["checks"]
 
 
@@ -93,11 +93,11 @@ def test_serve_half_answers_fail(monkeypatch):
     orig = port.predict_snapshot
     monkeypatch.setattr(port, "predict_snapshot",
                         lambda snap, X, device: orig(snap, X[: max(1, len(X) // 2)], device))
-    res = run_small(SERVE)
+    res = run_small(SERVE[0])
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("workload", LEARN + (SERVE,))
+@pytest.mark.parametrize("workload", LEARN + SERVE)
 def test_carried_comparison_reproduces_the_window(workload):
     """The program's rerun from an empty forest reaches the state the
     window started from (or the snapshot was frozen from) bit for bit,
@@ -109,7 +109,7 @@ def test_carried_comparison_reproduces_the_window(workload):
     assert res["correct"], res["checks"]
     assert info["start_equal"] is True
     assert info["window_steps_equal"] == info["window_steps_compared"]
-    if workload != SERVE:
+    if workload in LEARN:
         assert info["window_steps_compared"] > 0
 
 
@@ -130,7 +130,7 @@ def _setup_only_fault(orig, nth):
     return update
 
 
-@pytest.mark.parametrize("workload", (LEARN[0], SERVE))
+@pytest.mark.parametrize("workload", (LEARN[0], SERVE[0]))
 def test_carried_comparison_catches_a_setup_fault(monkeypatch, workload):
     from harness import port
     monkeypatch.setattr(port, "update", _setup_only_fault(port.update, 3))

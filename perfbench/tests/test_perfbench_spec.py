@@ -1,112 +1,110 @@
 """BENCHMARK.json and the files it names keep to the benchmark's rules."""
 import json
-import re
 import subprocess
 import sys
 
 import pytest
 
-from conftest import ROOT, LEARN, SERVE, run_small
+import spec_rules as rules
+from conftest import ROOT, LEARN, SERVE, T64, T64_CELL, run_small
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
-        "per_layer"}
 
 
 def test_top_level_and_entry_keys():
-    assert set(SPEC) == KEYS
-    for c in SPEC["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-    for w in SPEC["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
-    for m in SPEC["end_to_end"]:
-        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
-        assert m["source"] in ("host_clock", "device_trace")
-        assert 0.01 <= m["bound"] <= 0.25
-    for m in SPEC["per_layer"]:
-        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer",
-                                          "moves"}
+    assert rules.keys(SPEC, ROOT) == []
 
 
 def test_names_and_units_use_the_allowed_characters():
-    names = [x["name"] for k in ("configs", "workloads", "end_to_end", "per_layer")
-             for x in SPEC[k]]
-    names += [w["config"] for w in SPEC["workloads"]] + [w["traffic"] for w in SPEC["workloads"]]
-    names += [r for c in SPEC["configs"] for r in c["reduced"]]
-    for n in names:
-        assert NAME.match(n), n
-    for k in ("end_to_end", "per_layer"):
-        for m in SPEC[k]:
-            assert UNIT.match(m["unit"]), m["unit"]
-            assert m["better"] in ("lower", "higher")
-    for k in ("configs", "workloads", "end_to_end", "per_layer"):
-        assert len({x["name"] for x in SPEC[k]}) == len(SPEC[k])
-    for x in SPEC["configs"] + SPEC["workloads"]:
-        assert 1 <= len(x["why"]) <= 200 and "\n" not in x["why"]
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert rules.names(SPEC, ROOT) == []
 
 
 def test_cells_in_order_and_each_reports_enough():
-    assert [w["name"] for w in SPEC["workloads"]] == [LEARN[0], LEARN[1], LEARN[2], SERVE]
-    from harness import spec
-    for w in SPEC["workloads"]:
-        cell = spec.load(w["name"], ROOT)
-        e2e = {m["name"] for m in cell.end_to_end}
-        assert "setup_s" in e2e and len(e2e) >= 2
-        assert cell.per_layer
+    """The accepted cells first and in order; each cell with its files,
+    setup_s and another end-to-end metric, and a per-layer metric."""
+    assert rules.cells(SPEC, ROOT) == []
 
 
 def test_per_layer_metric_moves_one_metric_its_cells_report():
-    from harness import spec
-    e2e = {m["name"]: m for m in SPEC["end_to_end"]}
-    cells = [w["name"] for w in SPEC["workloads"]]
-    for m in SPEC["per_layer"]:
-        assert m["moves"] in e2e
-        listed = m.get("workloads", [w for w in cells if m["moves"] in
-                                     {x["name"] for x in spec.load(w, ROOT).end_to_end}])
-        assert listed
-        for w in listed:
-            cell = spec.load(w, ROOT)
-            assert m["moves"] in {x["name"] for x in cell.end_to_end}, (m["name"], w)
-            assert m["name"] in {x["name"] for x in cell.per_layer}, (m["name"], w)
-        assert (ROOT / "perfbench" / "metrics" / f"{m['name']}.py").exists()
-        if m["name"].endswith("_roofline"):
-            assert m["unit"] == "%"
+    assert rules.per_layer(SPEC, ROOT) == []
 
 
 def test_configuration_files_and_limits():
-    for c in SPEC["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert c["reduced"] == [] and cfg["assumed"]
-        assert (ROOT / cfg["reference"]).exists()
-        named = [k for group in (cfg["from_source"], cfg["departures"]) for key in group
-                 for k in key.split()] + cfg["assumed"]
-        assert all(k in cfg for k in named if k != "leaf_prediction"), named
-        assert not set(cfg["assumed"]) & set(named[:-len(cfg["assumed"])])
-    for w in SPEC["workloads"]:
-        assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").exists()
-        limits = json.loads((ROOT / "perfbench" / "limits" / f"{w['name']}.json").read_text())
-        assert limits and all(v >= 0 for v in limits.values())
+    assert rules.configs(SPEC, ROOT) == []
 
 
 def test_configurations_keep_rivers_documented_settings():
-    """ARFRegressor's defaults where the port can express them."""
-    for c in SPEC["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["n_trees"] == 10 and cfg["lam"] == 6 and cfg["vote"] == "mean"
-        assert round(cfg["subspace"] * cfg["n_features"]) == int(cfg["n_features"] ** 0.5)
-        assert (cfg["grace_period"], cfg["delta"], cfg["tau"]) == (50, 0.01, 0.05)
+    """ARFRegressor's defaults where the port can express them, or a
+    departure named with its reason; the accepted configurations keep
+    them."""
+    assert rules.river(SPEC, ROOT) == []
 
 
 def test_command_stays_in_paths():
-    assert SPEC["command"] == ["python3", "perfbench/run.py"]
-    assert SPEC["paths"] == ["perfbench"]
-    assert 1 <= SPEC["run_seconds"] <= 51
-    n = 24
-    assert 2 + 14 * n * (SPEC["run_seconds"] + 60) + n * 2 * 90 + 1200 <= 43200
+    assert rules.command(SPEC, ROOT) == []
+
+
+def _without_t64(spec):
+    """``spec`` less the entries :func:`conftest.grow_t64` adds."""
+    spec = json.loads(json.dumps(spec))
+    spec["configs"] = [c for c in spec["configs"] if c["name"] != T64]
+    spec["workloads"] = [w for w in spec["workloads"] if w["name"] != T64_CELL]
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if T64_CELL in m.get("workloads", []):
+            m["workloads"].remove(T64_CELL)
+    return spec
+
+
+def test_a_cell_joins_through_new_files_and_entries(grown):
+    """A configuration and its cell added as new files and entries alone
+    keep every rule, load and run correct at the small size; nothing
+    that was there changed but the appended entries."""
+    from harness import spec
+    assert rules.check(ROOT) == []
+    assert rules.check(grown) == []
+    assert _without_t64(json.loads((grown / "BENCHMARK.json").read_text())) == SPEC
+    new = []
+    for f in (grown / "perfbench").rglob("*.*"):
+        old = ROOT / f.relative_to(grown)
+        if old.exists():
+            assert f.read_bytes() == old.read_bytes(), f
+        else:
+            new.append(str(f.relative_to(grown)))
+    assert sorted(new) == [f"perfbench/configs/{T64}.json",
+                           f"perfbench/limits/{T64_CELL}.json",
+                           "perfbench/traffic/friedman_gra_4checks.json"]
+    cell = spec.load(T64_CELL, grown)
+    assert (cell.config["n_trees"], cell.config["max_nodes"]) == (64, 4095)
+    assert {m["name"] for m in cell.end_to_end} == {"learn_rows_per_s", "setup_s"}
+    res = run_small(T64_CELL, root=grown)
+    assert res["correct"], res["checks"]
+
+
+def _undeclared_lam(root):
+    f = root / "perfbench" / "configs" / f"{T64}.json"
+    cfg = json.loads(f.read_text())
+    f.write_text(json.dumps(dict(cfg, lam=4)))
+    return "lam = 4 under from_source"
+
+
+def _no_limits(root):
+    (root / "perfbench" / "limits" / f"{T64_CELL}.json").unlink()
+    return "limits file"
+
+
+def _off_the_rate(root):
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    next(m for m in spec["end_to_end"]
+         if m["name"] == "learn_rows_per_s")["workloads"].remove(T64_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return "setup_s and one more are due"
+
+
+@pytest.mark.parametrize("fault", [_undeclared_lam, _no_limits, _off_the_rate])
+def test_a_faulty_addition_breaks_a_rule(grown, fault):
+    want = fault(grown)
+    problems = rules.check(grown)
+    assert any(want in p and T64 in p for p in problems), problems
 
 
 FORBIDDEN_CHECK = r"""
@@ -128,7 +126,7 @@ def test_no_forbidden_module_is_loaded():
     code = FORBIDDEN_CHECK.format(tests=str(ROOT / "perfbench" / "tests"),
                                   bench=str(ROOT / "perfbench"), src=str(ROOT / "src"),
                                   spec=str(ROOT / "BENCHMARK.json"), learn=LEARN[0],
-                                  serve=SERVE)
+                                  serve=SERVE[0])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -146,7 +144,7 @@ def test_reference_imports_nothing_of_the_program():
     assert "repro_torch" not in loaded and "jax" not in loaded
 
 
-@pytest.mark.parametrize("workload", [LEARN[1], SERVE])
+@pytest.mark.parametrize("workload", [LEARN[1], SERVE[0]])
 def test_result_line_keys(workload):
     res = run_small(workload, seconds=0.2)
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]

@@ -58,7 +58,7 @@ def test_cauchy_map_is_monotone_and_keeps_y():
 
 def test_request_sizes_same_multiset_new_order():
     from harness import streams
-    t = small_cell(SERVE).traffic
+    t = small_cell(SERVE[0]).traffic
     a, b = streams.request_rows(t, 1), streams.request_rows(t, 2)
     assert sorted(a) == sorted(b) and not np.array_equal(a, b)
     assert a.min() >= 1 and a.max() <= t["request_rows_max"]
