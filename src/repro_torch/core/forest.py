@@ -116,6 +116,11 @@ def _fresh_trees(cfg: ForestConfig, T: int, dev):
             for k, v in base.items()}
 
 
+def _nbytes(tree) -> int:
+    """Bytes of the tensors of a (nested) state dict."""
+    return sum(_nbytes(v) if isinstance(v, dict) else v.nbytes for v in tree.values())
+
+
 def init_forest(cfg: ForestConfig, seed: int = 0, *, device=None,
                 feat_mask=None) -> ForestState:
     """Fresh forest state; every leaf carries the tree axis first.
@@ -426,7 +431,9 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
     if swaps:
         count("forest.swaps")
         with span("forest.swap"):
-            fresh = _fresh_trees(cfg, T, dev)
+            with span("forest.fresh"):
+                fresh = _fresh_trees(cfg, T, dev)
+            count("forest.fresh_bytes", lambda: _nbytes(fresh))
 
             def swap(a, f):
                 return torch.where(

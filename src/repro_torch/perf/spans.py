@@ -10,8 +10,8 @@ untraced step pays one check of the profiler's flag for each.
 * :func:`count` / :func:`counts` / :func:`reset_counts` -- plain host
   integers at values the step already holds on the host (a compaction's
   row count, a split list's length, a host branch taken, a stage that ran
-  its kernel: ``forest.leaf_stats``), so counting adds no launch and no
-  device read.
+  its kernel: ``forest.leaf_stats``, the bytes of a swap's fresh members:
+  ``forest.fresh_bytes``), so counting adds no launch and no device read.
 
 This module imports nothing of the port, so the kernels' wrappers and
 the core modules may import it; :mod:`repro_torch.perf.profile`
@@ -38,11 +38,11 @@ def span(name: str):
     return _OFF
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` (a host integer) to counter ``name`` while a profiler
-    records."""
+def count(name: str, n=1) -> None:
+    """Add ``n`` (a host integer, or a function that returns one, called
+    only then) to counter ``name`` while a profiler records."""
     if _recording():
-        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n() if callable(n) else n)
 
 
 def counts() -> dict:

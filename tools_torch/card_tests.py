@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py``,
 ``tests/test_torch_ebst.py``, ``tests/test_torch_perf.py``,
-``tests/test_torch_lm_card.py`` and ``tests/test_torch_launch.py`` (the
-sharded train step over a one-rank NCCL mesh) on a GPU machine without
+``tests/test_torch_lm_card.py``, ``tests/test_torch_launch.py`` (the
+sharded train step over a one-rank NCCL mesh) and
+``tests/test_torch_forest_many_trees.py`` on a GPU machine without
 JAX: the
 modules' JAX and reference imports (which only their CPU tests use) are
 stubbed with empty modules.  ``CUBLAS_WORKSPACE_CONFIG`` is set for the
@@ -50,4 +51,5 @@ sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
                                   "test_torch_ebst.py",
                                   "test_torch_perf.py",
                                   "test_torch_lm_card.py",
-                                  "test_torch_launch.py"))]))
+                                  "test_torch_launch.py",
+                                  "test_torch_forest_many_trees.py"))]))
