@@ -35,7 +35,7 @@ Seven paths at full width, each fatal on failure:
 Phases:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the nine CUDA sources from ``src/repro_torch/csrc`` (one nvcc
+2. build the ten CUDA sources from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) into ``build/kernels/``, and the latency
    probes ``tools_torch/chase.cu`` beside them (a dependent load in global
    and in shared memory, a dependent observe and merge);
@@ -61,7 +61,11 @@ Phases:
    compaction stage timed beside the unfused stage's record; the target
    statistics kernel (``leaf_stats``) on the step's sort and on a root
    holding its tree's whole batch, one launch and no other device op a
-   call, rerun bitwise, n exact against the plain version; the batched
+   call, rerun bitwise, n exact against the plain version; the drift
+   test (``drift_test``) at T = 10 and T = 64 members, one launch and no
+   other device op a call, a planted member swapped, bitwise equal to the
+   plain version and to a rerun, its device time no less than its bound;
+   the batched
    query on the QO forest's attempt set and on the sketch forest's
    (C = K = 16), rerun bitwise; both E-BST kernels (insert and query)
    bitwise against their plain versions on a §5.1 stream of 5,000 rows as
@@ -528,8 +532,8 @@ def _route_row(trees, Xk):
     arrays = [trees[k] for k in ("feature", "threshold", "child", "is_leaf")]
     call = lambda: kops.forest_route(*arrays, Xk, depth=DEPTH)
     before = _build.LAUNCHES["qo_route"]
-    ops = _device_kernels(call)
-    if _build.LAUNCHES["qo_route"] != before + 1 or len(ops) != 1:
+    ops, calls = _device_kernels(call)
+    if _build.LAUNCHES["qo_route"] != before + calls or len(ops) != 1:
         raise AssertionError(f"qo_route: a call ran {ops} and "
                              f"{_build.LAUNCHES['qo_route'] - before} "
                              f"launches, not the kernel alone")
@@ -599,10 +603,15 @@ def _sketch_inputs(scfg, sbatches, seed, dev):
 
 
 def _device_kernels(fn):
-    """Names of the device operations one call of ``fn`` runs (no warm-up
-    call: the caller counts this call's launches)."""
+    """Names of the device operations one call of ``fn`` runs, and how many
+    calls that took (no warm-up call: the caller counts these calls'
+    launches; a window the profiler dropped is profiled again, so a call
+    can be made more than once)."""
     from repro_torch.perf import profile
-    return list(profile.device_times(fn, reps=1, warm=False))
+    calls = []
+    ops = profile.device_times(lambda: calls.append(fn()), reps=1,
+                               warm=False)
+    return list(ops), len(calls)
 
 
 def _sketch_compact_row(sin):
@@ -616,8 +625,9 @@ def _sketch_compact_row(sin):
     from repro_torch.perf import profile
     old, new = sin["old"], sin["new"]
     before = _build.LAUNCHES["sketch_compact"]
-    ops = _device_kernels(lambda: sketch_compact.compact_kernel(old, KS, new))
-    if _build.LAUNCHES["sketch_compact"] != before + 1 or len(ops) != 1:
+    ops, calls = _device_kernels(
+        lambda: sketch_compact.compact_kernel(old, KS, new))
+    if _build.LAUNCHES["sketch_compact"] != before + calls or len(ops) != 1:
         raise AssertionError(f"sketch_compact: a call ran {ops} and "
                              f"{_build.LAUNCHES['sketch_compact'] - before} "
                              f"launches, not the kernel alone")
@@ -683,14 +693,17 @@ def _leaf_stats_row(trees, gl, yk, w, what):
     def kernel(args):
         return leaf_stats.leaf_stats_kernel(*args, yk, w, rows, bad)
 
-    k1, k2 = fresh(), fresh()
+    k0, k1, k2 = fresh(), fresh(), fresh()
     before = _build.LAUNCHES["leaf_stats"]
-    ops = _device_kernels(lambda: kernel(k1))
-    if _build.LAUNCHES["leaf_stats"] != before + 1 or len(ops) != 1 \
+    # the profiled calls merge into k0 (more than once if a window drops)
+    ops, calls = _device_kernels(lambda: kernel(k0))
+    if _build.LAUNCHES["leaf_stats"] != before + calls or len(ops) != 1 \
             or bool(bad):
         raise AssertionError(f"leaf_stats ({what}): a call ran {ops}, "
                              f"{_build.LAUNCHES['leaf_stats'] - before} "
                              f"launches, flag {bool(bad)}")
+    del k0
+    kernel(k1)
     kernel(k2)
     if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip([*k1[0].values(), k1[1]],
@@ -719,6 +732,104 @@ def _leaf_stats_row(trees, gl, yk, w, what):
           f"bitwise equal; the call {row['ms']:.4f} ms, device "
           f"{row['device_ms']:.4f} ms (bound {bound:.6f} ms, {by}); the "
           f"plain version {row['plain_ms']:.4f} ms", flush=True)
+    return row
+
+
+def _drift_inputs(T_, seed, dev):
+    """A drift test's inputs at ``T_`` members and B live rows, as a forest
+    step holds them mid-stream: long windows of 8-10 batches, errors near
+    their means, member 1 far above its bar (it swaps) and member 0 above
+    its bar by less (it signals, and its window freezes)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(T_, generator=gen, device=dev)
+    n, mean = u(8.0, 9.95), u(1.0, 3.0)
+    m2 = (n - 1) * u(0.05, 0.2) ** 2
+    ewma, mse = mean * u(0.98, 1.02), mean * u(0.98, 1.02)
+    mse[0], mse[1] = 40.0, 80.0
+    resets = torch.randint(0, 5, (T_,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    wraw = torch.tensor(float(B), device=dev)
+    return (mse, wraw, torch.clamp(wraw, min=1e-12),
+            {"n": n, "mean": mean, "m2": m2}, ewma, resets)
+
+
+def _drift_test_row(cfg, T_, seed, dev):
+    """Phase 3: the drift test kernel (``kernels/drift_test.py``) at ``T_``
+    members and B rows under ``cfg``'s drift constants: one launch and no
+    other device op a call, member 1 alone swapped, ``flags[0]`` set and
+    ``flags[1]`` left alone, the inputs unwritten, bitwise equal to a
+    rerun and to the plain version (today's composition); the call and
+    the plain version timed, the kernel's device time no less than its
+    bound from ``drift_test.cost``.  Returns the kernel's row."""
+    import torch
+    from repro_torch.kernels import _build, drift_test
+    from repro_torch.perf import profile
+    args = _drift_inputs(T_, seed, dev)
+    consts = dict(B=B, drift_alpha=cfg.drift_alpha,
+                  drift_decay=cfg.drift_decay, drift_kappa=cfg.drift_kappa,
+                  min_batches=cfg.drift_min_batches)
+    inputs = lambda: [args[0], *args[3].values(), args[4], args[5]]
+    before_in = [a.clone() for a in inputs()]
+    flags = [torch.tensor([False, True], device=dev) for _ in range(3)]
+
+    def kernel(f):
+        return drift_test.drift_test_kernel(*args, f, **consts)
+
+    def plain(f):
+        return drift_test.drift_test_plain(*args, f, **consts)
+
+    out = []
+    before = _build.LAUNCHES["drift_test"]
+    ops, calls = _device_kernels(lambda: out.append(kernel(flags[0])))
+    if _build.LAUNCHES["drift_test"] != before + calls or len(ops) != 1:
+        raise AssertionError(f"drift_test (T = {T_}): a call ran {ops} and "
+                             f"{_build.LAUNCHES['drift_test'] - before} "
+                             f"launches, not the kernel alone")
+    names = ("drift", "n", "mean", "m2", "ewma", "resets")
+    bits = lambda r: [r[0], *(r[1][k].view(torch.int32) for k in names[1:4]),
+                      r[2].view(torch.int32), r[3]]
+    k1, k2, p = bits(out[-1]), bits(kernel(flags[1])), bits(plain(flags[2]))
+    for a, b, c, what in zip(k1, k2, p, names):
+        if not torch.equal(a, b):
+            raise AssertionError(f"drift_test (T = {T_}): a rerun differs "
+                                 f"in {what}")
+        if not torch.equal(a, c):
+            raise AssertionError(f"drift_test (T = {T_}): {what} differs "
+                                 f"from the plain version")
+    swapped = k1[0].nonzero().flatten().tolist()
+    if swapped != [1] or [f.tolist() for f in flags] != [[True, True]] * 3:
+        raise AssertionError(f"drift_test (T = {T_}): swapped {swapped}, "
+                             f"flags {[f.tolist() for f in flags]}")
+    win = out[-1][1]
+    if not all(torch.equal(win[k][0], args[3][k][0]) for k in win):
+        raise AssertionError(f"drift_test (T = {T_}): member 0 signals and "
+                             f"its window did not freeze")
+    if not all(torch.equal(a, b) for a, b in zip(inputs(), before_in)):
+        raise AssertionError(f"drift_test (T = {T_}): an input was written")
+    bound, by = profile.bound(*drift_test.cost(T_))
+    scratch = torch.zeros(1, dtype=torch.bool, device=dev)
+    row = dict(
+        name="drift_test", route="cuda",
+        source="src/repro_torch/csrc/drift_test.cu", replaces=None,
+        max_abs_err=0.0, ms=_time_ms(lambda: kernel(scratch)),
+        plain_ms=_time_ms(lambda: plain(scratch)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        device_ms=_device_ms(lambda: kernel(scratch)))
+    if row["device_ms"] < bound:
+        raise AssertionError(f"drift_test (T = {T_}): device "
+                             f"{row['device_ms']} ms under its bound "
+                             f"{bound} ms: cost() counts too many bytes")
+    print(f"[3] drift_test (T = {T_}, B = {B}): one launch and no other "
+          f"device op a call ({ops[0][:40]}), member 1 swapped and member 0 "
+          f"frozen, bitwise equal to the plain version and to a rerun; the "
+          f"call {row['ms']:.4f} ms, device {row['device_ms']:.6f} ms "
+          f"(bound {bound:.9f} ms, {by}, "
+          f"{bound / row['device_ms']:.3%}); the plain version "
+          f"{row['plain_ms']:.4f} ms", flush=True)
     return row
 
 
@@ -2393,6 +2504,7 @@ def _phase15(batches, seed, dev):
 #: by its launch count's name.
 STEP_KERNELS = {"qo_route": "qo_route_kernel",
                 "leaf_stats": "leaf_stats_kernel",
+                "drift_test": "drift_test_kernel",
                 "qo_update_leaves": "qo_update_leaves_pieces_kernel",
                 "qo_query_batched": "qo_query_batched_kernel"}
 
@@ -3418,6 +3530,9 @@ def main(argv=None) -> int:
     root = gl.clone()
     root[:B] = 0                        # tree 0 a fresh tree: one root run
     _leaf_stats_row(trees, root, yk, w, "a root holding its tree's batch")
+    # the drift test at the stable cells' T = 10 and at T = 64
+    rows.append(_drift_test_row(cfg, 10, args.seed, dev))
+    _drift_test_row(cfg, 64, args.seed + 1, dev)
 
     qrows = _attempt_rows(cfg, trees, gl, yk, w)
     rows.append(_query_row(ty_k, tsx_k, qrows, "QO forest", True))
@@ -3460,7 +3575,7 @@ def main(argv=None) -> int:
           f"{STREAM_BATCHES * B / secs:.0f} rows/s")
     print(f"[4] kernels {json.dumps(launches)}", flush=True)
     for name in ("qo_route", "qo_update_leaves", "leaf_stats",
-                 "qo_query_batched"):
+                 "drift_test", "qo_query_batched"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     if not (np.isfinite(mse).all() and mse[-1] < mse[0]):

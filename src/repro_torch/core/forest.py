@@ -27,6 +27,7 @@ import torch
 from repro_torch import device as dv
 from repro_torch.core import hoeffding as ht
 from repro_torch.core import stats
+from repro_torch.kernels import drift_test as kdrift
 from repro_torch.kernels import leaf_stats as kleaf
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -321,18 +322,15 @@ def _learn(cfg: ForestConfig, trees, feat_mask, X, y, w):
     return ht.attempt_trees(cfg.tree, trees, feat_mask), (flags, gl, T * M)
 
 
-def _any_drift(drift, ids) -> bool:
-    """``bool(drift.any())``, the step's one host read.  With ``ids``
-    (``(flags, gl, n)`` from :func:`_learn`) the same read carries the
-    target statistics' check of the folded leaf ids, ``flags[1]``: a
-    two-element read in place of one, and a RuntimeError naming the ids
-    outside [0, n)."""
-    if ids is None:
-        return bool(drift.any())
-    flags, gl, n = ids
-    torch.any(drift, 0, keepdim=True, out=flags[:1])
-    swaps, bad = flags.tolist()
-    if bad:
+def _any_drift(flags, ids) -> bool:
+    """``flags[0]``, the drift test's ``drift.any()``: the step's one host
+    read.  With ``ids`` (``(flags, gl, n)`` from :func:`_learn`) the same
+    read carries the target statistics' check of the folded leaf ids,
+    ``flags[1]``: a two-element read in place of one, and a RuntimeError
+    naming the ids outside [0, n)."""
+    swaps, *bad = flags.tolist()
+    if any(bad):
+        _, gl, n = ids
         raise kleaf.out_of_range(gl, n)
     return swaps
 
@@ -369,7 +367,8 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
     X, y, row_w = ht.as_batch(X, y, w, dev)
     B = y.shape[0]
     T, F = state["vote_w"].shape[0], cfg.tree.n_features
-    wsum = torch.clamp(row_w.sum(), min=1e-12)
+    wraw = row_w.sum()
+    wsum = torch.clamp(wraw, min=1e-12)
 
     # --- test: prequential member + forest errors on the raw stream ------
     with span("forest.predict"):
@@ -397,34 +396,21 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
     trees, ids = _learn(cfg, state["trees"], state["feat_mask"], X, y,
                         w_learn)
 
-    # --- drift: ADWIN-style short-vs-long window test per member ---------
+    # --- drift: short-vs-long error-window test per member --------------
     # compared BEFORE this batch folds into the long window; both windows
-    # advance by the batch's real-row fraction
+    # advance by the batch's real-row fraction; a drifting member's window
+    # restarts (kernels/drift_test.py: one launch on the card)
     with span("forest.drift"):
-        live = row_w.sum() > 0
-        frac = torch.where(live, torch.clamp(wsum / max(float(B), 1.0),
-                                             max=1.0), 0.0)
-        alpha = cfg.drift_alpha * frac
-        first = (state["err_win"]["n"] < 0.5) & live
-        ewma = torch.where(first, member_mse,
-                           (1.0 - alpha) * state["err_ewma"]
-                           + alpha * member_mse)
-        ref = state["err_win"]
-        sd = torch.sqrt(torch.clamp(stats.variance(ref), min=1e-12))
-        signal = (ref["n"] >= cfg.drift_min_batches) \
-            & (ewma > ref["mean"] + cfg.drift_kappa * sd)
-        # swap at most the WORST signalling member per batch
-        worst = torch.argmax(torch.where(signal, ewma, float("-inf")))
-        drift = signal & (torch.arange(T, device=dev) == worst)
-        decay_f32 = torch.tensor(cfg.drift_decay, dtype=torch.float32,
-                                 device=dev)
-        decay = torch.where(frac >= 1.0, decay_f32, decay_f32 ** frac)
-        decayed = {"n": decay * ref["n"], "mean": ref["mean"],
-                   "m2": decay * ref["m2"]}
-        observed = stats.observe(decayed, member_mse, frac)
-        # a signalling member's reference freezes (no decay, no observe)
-        win = {k: torch.where(signal, ref[k], observed[k]) for k in observed}
-        swaps = _any_drift(drift, ids)  # host branch: most batches swap nobody
+        if ids is None:         # the oracle engine launches no port kernel
+            flags = torch.empty(1, dtype=torch.bool, device=dev)
+            test = kdrift.drift_test_plain
+        else:
+            flags, test = ids[0], kdrift.drift_test
+        drift, err_win, err_ewma, resets = test(
+            member_mse, wraw, wsum, state["err_win"], state["err_ewma"],
+            state["resets"], flags, B, cfg.drift_alpha, cfg.drift_decay,
+            cfg.drift_kappa, cfg.drift_min_batches)
+        swaps = _any_drift(flags, ids)  # host branch: most batches swap nobody
 
     # --- swap: reset the drifting member (fresh tree, subspace, window) --
     feat_mask = state["feat_mask"]
@@ -447,10 +433,9 @@ def _update(cfg, state, X, y, w, bag_w, new_masks, device, group):
             "trees": trees,
             "feat_mask": feat_mask,
             "rng": gen.get_state(),
-            "err_win": {k: torch.where(drift, 0.0, v)
-                        for k, v in win.items()},
-            "err_ewma": torch.where(drift, 0.0, ewma),
-            "resets": state["resets"] + drift.to(torch.int32),
+            "err_win": err_win,
+            "err_ewma": err_ewma,
+            "resets": resets,
         }
         # vote weights refresh ONCE per learned batch
         state["vote_w"] = vote_weights(cfg, state)

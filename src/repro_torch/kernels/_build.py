@@ -45,7 +45,7 @@ __all__ = ["SOURCES", "LAUNCHES", "COST_SINKS", "reset_launches",
 
 SOURCES = ("qo_route", "qo_update_leaves", "qo_query_batched",
            "sketch_compact", "qo_update", "qo_query", "qo_merge",
-           "leaf_stats", "ebst")
+           "leaf_stats", "drift_test", "ebst")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

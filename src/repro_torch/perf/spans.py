@@ -10,8 +10,9 @@ untraced step pays one check of the profiler's flag for each.
 * :func:`count` / :func:`counts` / :func:`reset_counts` -- plain host
   integers at values the step already holds on the host (a compaction's
   row count, a split list's length, a host branch taken, a stage that ran
-  its kernel: ``forest.leaf_stats``, the bytes of a swap's fresh members:
-  ``forest.fresh_bytes``), so counting adds no launch and no device read.
+  its kernel: ``forest.leaf_stats``, ``forest.drift_test``, the bytes of
+  a swap's fresh members: ``forest.fresh_bytes``), so counting adds no
+  launch and no device read.
 
 This module imports nothing of the port, so the kernels' wrappers and
 the core modules may import it; :mod:`repro_torch.perf.profile`

@@ -291,3 +291,70 @@ def test_n_leaves_per_tree_matches_reference():
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jfr.n_leaves_per_tree(js)))
     assert (got > 1).any()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bits(tree, prefix=""):
+    """``{path: CPU tensor}`` of a nested dict, float32 leaves as their
+    bits (so -0.0 and 0.0, or two NaNs, are told apart as stored)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_bits(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    t = tree.cpu()
+    return {prefix: t.view(torch.int32) if t.dtype == torch.float32 else t}
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    """The forest step on the card (imports no JAX at run time)."""
+
+    def test_drifting_stream_with_the_drift_kernel_and_plain(
+            self, card, monkeypatch, tmp_path):
+        """A drifting stream (an abrupt shift, a batch whose rows all weigh
+        0, a padded tail) through ``forest.update`` with the drift test's
+        kernel and with its plain version on the card: states and ``aux``
+        bit for bit after every step, a member swapped, and under a
+        profiler ``forest.drift_test`` equals ``forest.steps``."""
+        import glob
+        import json
+        from repro_torch.kernels import drift_test
+        from repro_torch.perf import profile
+        tc = tfr.ForestConfig(tree=tht.HTRConfig(**TREE_KW), n_trees=5,
+                              drift_min_batches=2, drift_decay=0.6)
+        X, y = synth.piecewise_regression(3910, 4, seed=71)
+        y[2000:] = (synth.piecewise_target(X[2000:], shift=1.0) + 20.0
+                    ).astype(np.float32)
+        w = np.ones(len(y), np.float32)
+        w[1250:1500] = 0.0
+        batches = list(zip(*tht.pad_stream(X, y, w, 250)))
+
+        def stream():
+            state = tfr.init_forest(tc, 7, device=card)
+            steps = []
+            for Xb, yb, wb in batches:
+                state, aux = tfr.update(tc, state, Xb, yb, wb, device=card)
+                steps.append(_bits({"state": state, "aux": aux}))
+            return steps
+
+        with profile.trace(str(tmp_path)):
+            kernel = stream()
+        counts = json.load(open(glob.glob(str(tmp_path / "counters_*"))[0]))
+        monkeypatch.setattr(tfr.kdrift, "drift_test",
+                            drift_test.drift_test_plain)
+        plain = stream()
+        for i, (a, b) in enumerate(zip(kernel, plain)):
+            assert a.keys() == b.keys()
+            for key in a:
+                assert torch.equal(a[key], b[key]), f"step {i}: {key}"
+        assert int(kernel[-1]["state/resets"].sum()) > 0, "no swap fired"
+        assert counts["forest.swaps"] >= 1
+        assert counts["forest.drift_test"] == counts["forest.steps"] \
+            == len(batches)

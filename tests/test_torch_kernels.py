@@ -22,9 +22,9 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.core import sketch as tsk
-from repro_torch.kernels import (leaf_stats, qo_merge, qo_query,
-                                 qo_query_batched, qo_route, qo_update,
-                                 qo_update_leaves, sketch_compact)
+from repro_torch.kernels import (drift_test, leaf_stats, qo_merge,
+                                 qo_query, qo_query_batched, qo_route,
+                                 qo_update, qo_update_leaves, sketch_compact)
 from repro_torch.kernels.qo_update_leaves import xla_int32
 
 TOL = 1e-4
@@ -535,10 +535,167 @@ def test_leaf_stats_plain_flags_and_refuses_out_of_range_ids():
         flags = torch.tensor([False, True])
         with pytest.raises(RuntimeError,
                            match=rf"outside \[0, {N}\): \[{planted}\]"):
-            tfr._any_drift(torch.zeros(2, dtype=torch.bool), (flags, g, N))
-    flags = torch.zeros(2, dtype=torch.bool)
-    assert tfr._any_drift(torch.tensor([False, True]), (flags, gl, N))
-    assert not tfr._any_drift(torch.tensor([False, False]), (flags, gl, N))
+            tfr._any_drift(flags, (flags, g, N))
+    for flags in (torch.tensor([True, False]), torch.tensor([False, False])):
+        assert tfr._any_drift(flags, (flags, gl, N)) == bool(flags[0])
+    assert tfr._any_drift(torch.tensor([True]), None)
+
+
+DRIFT = dict(drift_alpha=0.5, drift_decay=0.9, drift_kappa=3.0,
+             min_batches=8)
+
+
+def model_drift_test(member_mse, wraw, wsum, err_win, err_ewma, resets, B,
+                     drift_alpha, drift_decay, drift_kappa, min_batches,
+                     on_card=False):
+    """``csrc/drift_test.cu``'s order in float32, member by member:
+    ``(drift, err_win, err_ewma, resets)`` as numpy arrays.  Two of its
+    operations round as the device does: a tensor over a host scalar is a
+    division on the CPU and, ``on_card``, a multiply by the float
+    reciprocal; the decay's power is torch's on the inputs' device."""
+    f = np.float32
+    host = lambda t: t.cpu().numpy()
+    mse, ewma_in, res_in = host(member_mse), host(err_ewma), host(resets)
+    n, mean, m2 = (host(err_win[k]) for k in ("n", "mean", "m2"))
+    T, Bf = mse.shape[0], f(max(float(B), 1.0))
+    live = f(float(wraw)) > 0
+    share = f(float(wsum)) * (f(1) / Bf) if on_card \
+        else f(float(wsum)) / Bf
+    frac = f(min(share, f(1))) if live else f(0)
+    alpha = frac * f(drift_alpha)
+    keep = f(1) - alpha
+    decay = f(drift_decay) if frac >= 1 else f(torch.pow(
+        torch.tensor(drift_decay, dtype=torch.float32,
+                     device=member_mse.device),
+        torch.tensor(frac, device=member_mse.device)).item())
+    out = {k: np.zeros(T, np.float32) for k in ("n", "mean", "m2")}
+    ewma = np.zeros(T, np.float32)
+    signal = np.zeros(T, bool)
+    for i in range(T):
+        first = n[i] < f(0.5) and live
+        ewma[i] = mse[i] if first else keep * ewma_in[i] + alpha * mse[i]
+        denom = n[i] - f(1)
+        var = m2[i] / denom if denom > 0 else f(0)
+        sd = np.sqrt(np.maximum(var, f(1e-12)))
+        signal[i] = n[i] >= f(min_batches) \
+            and ewma[i] > mean[i] + sd * f(drift_kappa)
+        if signal[i]:
+            out["n"][i], out["mean"][i], out["m2"][i] = n[i], mean[i], m2[i]
+            continue
+        on = decay * n[i] + frac
+        safe = on if on > 0 else f(1)
+        d_pre = mse[i] - mean[i]
+        wd = frac * d_pre
+        om = mean[i] + wd / safe
+        out["n"][i], out["mean"][i] = on, om
+        out["m2"][i] = decay * m2[i] + wd * (mse[i] - om)
+    masked = np.where(signal, ewma, f(-np.inf))
+    worst = 0
+    for i in range(1, T):
+        if masked[i] > masked[worst]:
+            worst = i
+    drift = signal & (np.arange(T) == worst)
+    for k in out:
+        out[k][drift] = 0
+    ewma[drift] = 0
+    return drift, out, ewma, res_in + drift.astype(np.int32)
+
+
+def drift_case(name):
+    """The inputs of one drift test (as the forest step holds them) and its
+    constants.  ``first_step``: every window empty; ``dead_batch``: every
+    row weighs 0 (not live; the decay's power at 0); ``padded_tail``: 90
+    live rows of 250 (frac < 1) under other constants; ``young``: members
+    above the bar whose windows hold fewer than ``min_batches``;
+    ``tied``: three members signal with the same, largest ewma (the first
+    swaps); ``one_member``: T = 1, signalling; ``quiet``: T = 64, no
+    member above the bar."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    T = {"first_step": 10, "dead_batch": 3, "padded_tail": 10, "young": 10,
+         "tied": 64, "one_member": 1, "quiet": 64}[name]
+    consts = dict(DRIFT)
+    B, live_rows = 4096, 4096.0
+    n = rng.uniform(8.0, 9.95, T)
+    mean = rng.uniform(1.0, 3.0, T)
+    m2 = (n - 1) * rng.uniform(0.05, 0.2, T) ** 2
+    ewma = mean * rng.uniform(0.98, 1.02, T)
+    mse = mean * rng.uniform(0.98, 1.02, T)
+    resets = rng.integers(0, 5, T)
+    if name == "first_step":
+        n[:], mean[:], m2[:], ewma[:] = 0, 0, 0, 0
+    elif name == "dead_batch":
+        live_rows = 0.0
+        mse[1] = 50.0
+    elif name == "padded_tail":
+        B, live_rows = 250, 90.0
+        consts.update(drift_alpha=0.3, drift_decay=0.6, drift_kappa=2.5,
+                      min_batches=2)
+        mse[2], mse[7] = 40.0, 30.0
+    elif name == "young":
+        n[:4] = [0.6, 3.0, 7.0, 7.999]
+        mse[:4] = 60.0
+        mse[6] = 30.0
+    elif name == "tied":
+        for i in (5, 17, 40):
+            ewma[i], mse[i] = 9.0, 80.0
+        mse[[3, 60]] = 40.0
+    elif name == "one_member":
+        mse[0] = 25.0
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt)
+    wraw = t(live_rows)
+    wsum = torch.clamp(wraw, min=1e-12)
+    args = (t(mse), wraw, wsum, {"n": t(n), "mean": t(mean), "m2": t(m2)},
+            t(ewma), t(resets, torch.int32))
+    return args, dict(B=B, **consts)
+
+
+DRIFT_CASES = ("first_step", "dead_batch", "padded_tail", "young", "tied",
+               "one_member", "quiet")
+
+
+def assert_drift_case(name, drift, win, ewma, args):
+    """What the case is there to exercise, read off a result."""
+    mse, _, _, ref, _, _ = ({k: v.cpu() for k, v in a.items()}
+                            if isinstance(a, dict) else a.cpu()
+                            for a in args)
+    drift = drift.cpu()
+    swapped = drift.nonzero().flatten().tolist()
+    want = {"first_step": [], "dead_batch": [], "padded_tail": [2],
+            "young": [6], "tied": [5], "one_member": [0], "quiet": []}
+    assert swapped == want[name], swapped
+    if name == "first_step":
+        assert torch.equal(ewma.cpu(), mse)
+    if name == "dead_batch":
+        assert torch.equal(win["n"].cpu(), ref["n"])
+    # a member that signals and does not swap keeps its window frozen
+    frozen = {"padded_tail": [7], "tied": [17, 40, 3, 60]}.get(name, [])
+    for k in ("n", "mean", "m2"):
+        assert torch.equal(win[k].cpu()[frozen], ref[k][frozen]), k
+
+
+@pytest.mark.parametrize("name", DRIFT_CASES)
+def test_drift_test_order_model_matches_plain(name):
+    """The kernel's order (``model_drift_test``) bitwise against the plain
+    version (today's composition) on the CPU: the drift flags, windows,
+    ewma and resets; ``flags[0]`` is ``drift.any()`` and ``flags[1]`` is
+    left alone; the inputs are not written."""
+    args, consts = drift_case(name)
+    before = [a.clone() for a in (*args[:3], *args[3].values(), *args[4:])]
+    flags = torch.tensor([False, True])
+    drift, win, ewma, resets = drift_test.drift_test(*args, flags, **consts)
+    md, mwin, mewma, mres = model_drift_test(*args, **consts)
+    bits = lambda a: torch.as_tensor(a).view(torch.int32)
+    assert drift.dtype == torch.bool and torch.equal(drift,
+                                                     torch.tensor(md))
+    for k in ("n", "mean", "m2"):
+        assert torch.equal(bits(win[k]), bits(mwin[k])), k
+    assert torch.equal(bits(ewma), bits(mewma))
+    assert resets.dtype == torch.int32 and torch.equal(resets,
+                                                       torch.tensor(mres))
+    assert flags.tolist() == [bool(drift.any()), True]
+    after = (*args[:3], *args[3].values(), *args[4:])
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert_drift_case(name, drift, win, ewma, args)
 
 
 def model_qo_update(table, x, y, w):
@@ -1289,6 +1446,45 @@ class TestOnCard:
         assert len(spans_of("forest.stats")) == 6
         assert within(spans_of("forest.drift")) >= 3
         assert within(spans_of("forest.stats")) == 0
+
+    @pytest.mark.parametrize("name", DRIFT_CASES)
+    def test_drift_test_kernel(self, card, name):
+        """Bitwise equal to the plain version on the card and to the float32
+        model of its order (with the card's rounding); one launch a call,
+        ``flags[0]`` the drift and ``flags[1]`` untouched, the inputs not
+        written, a rerun bitwise."""
+        args, consts = drift_case(name)
+        on = lambda a: ({k: v.to(card) for k, v in a.items()}
+                        if isinstance(a, dict) else a.to(card))
+        args = tuple(on(a) for a in args)
+        bits = lambda t: torch.as_tensor(t).cpu().view(torch.int32)
+        flat = lambda r: [torch.as_tensor(r[0]).cpu(),
+                          *(bits(r[1][k]) for k in ("n", "mean", "m2")),
+                          bits(r[2]), torch.as_tensor(r[3]).cpu()]
+        before = [a.clone() for a in (*args[:3], *args[3].values(),
+                                      *args[4:])]
+        runs = []
+        for fn in (drift_test.drift_test, drift_test.drift_test_plain,
+                   drift_test.drift_test):
+            flags = torch.tensor([False, True], device=card)
+            launches = _build.LAUNCHES["drift_test"]
+            out = fn(*args, flags, **consts)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["drift_test"] == launches + (
+                fn is drift_test.drift_test)
+            assert flags.tolist() == [bool(out[0].any()), True]
+            runs.append(flat(out))
+        model = flat(model_drift_test(*args, **consts, on_card=True))
+        for i, what in enumerate(("drift", "n", "mean", "m2", "ewma",
+                                  "resets")):
+            assert torch.equal(runs[0][i], runs[1][i]), what
+            assert torch.equal(runs[0][i], runs[2][i]), what
+            assert torch.equal(runs[0][i], model[i]), what
+        after = (*args[:3], *args[3].values(), *args[4:])
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
+        kd, kw, ke, _ = drift_test.drift_test(
+            *args, torch.zeros(1, dtype=torch.bool, device=card), **consts)
+        assert_drift_case(name, kd, kw, ke, args)
 
     def _query_holds(self, card, tab_y, sum_x, rows):
         """Kernel bitwise equal to the float32 model of its order, and

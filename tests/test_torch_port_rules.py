@@ -28,9 +28,9 @@ from repro_torch.core import multi as tmulti
 from repro_torch.core import qo as tqo
 from repro_torch.core import serve as tsv
 from repro_torch.kernels import _build
-from repro_torch.kernels import (ebst, leaf_stats, qo_merge, qo_query,
-                                 qo_query_batched, qo_route, qo_update,
-                                 qo_update_leaves, sketch_compact)
+from repro_torch.kernels import (drift_test, ebst, leaf_stats, qo_merge,
+                                 qo_query, qo_query_batched, qo_route,
+                                 qo_update, qo_update_leaves, sketch_compact)
 from repro_torch import configs as tcfg
 from repro_torch.data import tokens as ttokens
 from repro_torch.launch import mesh as tmesh
@@ -76,11 +76,11 @@ def test_every_port_module_is_scanned():
             "model", "adamw", "tokens", "steps", "loop", "train",
             "qwen3_8b", "grok_1_314b", "zamba2_2_7b",
             "whisper_medium", "mesh", "dryrun", "perf", "hlocost",
-            "leaf_stats"} <= names
+            "leaf_stats", "drift_test"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "qo_route.cu", "qo_update_leaves.cu", "qo_query_batched.cu",
         "sketch_compact.cu", "qo_update.cu", "qo_query.cu", "qo_merge.cu",
-        "leaf_stats.cu", "ebst.cu"}
+        "leaf_stats.cu", "drift_test.cu", "ebst.cu"}
     assert set(_build.SOURCES) == {p.stem for p in
                                    (PORT / "csrc").glob("*.cu")}
 
@@ -231,6 +231,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             {k: torch.zeros(4) for k in ("n", "mean", "m2")}, torch.zeros(4),
             torch.zeros(2), torch.ones(2), (z[:2], z[:1].repeat(5)),
             torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="drift_test"):
+        drift_test.drift_test_kernel(
+            *drift_args(), torch.zeros(1, dtype=torch.bool), 4, 0.5, 0.9,
+            3.0, 8)
     bst = tebst.init(8, device="cpu")
     with pytest.raises(ValueError, match="ebst_insert"):
         ebst.insert_kernel(bst, torch.zeros(2), torch.zeros(2))
@@ -282,6 +286,71 @@ def test_leaf_stats_routes_cpu_tensors_to_the_plain_version(monkeypatch):
     assert spans.counts()["forest.steps"] == 1
     assert "forest.leaf_stats" not in spans.counts()
     assert _build.LAUNCHES == before
+
+
+def drift_args(T=3):
+    """A drift test's tensor inputs on the CPU: (member_mse, wraw, wsum,
+    err_win, err_ewma, resets)."""
+    return (torch.rand(T), torch.tensor(4.0), torch.tensor(4.0),
+            {"n": torch.full((T,), 9.0), "mean": torch.rand(T),
+             "m2": torch.rand(T)}, torch.rand(T),
+            torch.zeros(T, dtype=torch.int32))
+
+
+def test_drift_test_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    """``drift_test.drift_test`` on CPU tensors never reaches the launcher
+    and is the plain composition; a CPU forest step counts no
+    ``forest.drift_test`` under a profiler."""
+    from repro_torch.perf import spans
+
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA launch")
+    monkeypatch.setattr(drift_test, "drift_test_kernel", boom)
+    monkeypatch.setattr(drift_test, "_library", boom)
+    before = dict(_build.LAUNCHES)
+    args = drift_args()
+    consts = (4, 0.5, 0.9, 3.0, 8)
+    flags = torch.zeros(1, dtype=torch.bool)
+    out = drift_test.drift_test(*args, flags, *consts)
+    plain = drift_test.drift_test_plain(*args, torch.zeros(1, dtype=bool),
+                                        *consts)
+    for a, b in zip(out, plain):
+        a, b = (a, b) if isinstance(a, dict) else ({0: a}, {0: b})
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert bool(flags) == bool(out[0].any())
+    spans.reset_counts()
+    state = tfr.init_forest(CFG, device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        tfr.update(CFG, state, np.zeros((4, 3), np.float32),
+                   np.zeros(4, np.float32), device="cpu")
+    assert spans.counts()["forest.steps"] == 1
+    assert "forest.drift_test" not in spans.counts()
+    assert _build.LAUNCHES == before
+
+
+def test_oracle_engine_runs_the_plain_drift_test(monkeypatch):
+    """The oracle engine (the seed's member-by-member engine) launches no
+    kernel of the port: its forest step calls ``drift_test_plain`` itself,
+    never the dispatching ``drift_test``, and still reads the swap
+    decision from its flag."""
+    import dataclasses
+
+    def boom(*a, **k):
+        raise AssertionError("the oracle engine reached drift_test")
+    monkeypatch.setattr(tfr.kdrift, "drift_test", boom)
+    cfg = dataclasses.replace(CFG, tree=dataclasses.replace(
+        CFG.tree, split_backend="oracle"))
+    state = tfr.init_forest(cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        state, aux = tfr.update(cfg, state,
+                                rng.normal(size=(16, 3)).astype(np.float32),
+                                rng.normal(size=16).astype(np.float32),
+                                device="cpu")
+    assert aux["drift"].dtype == torch.bool and aux["drift"].shape == (2,)
+    # three live batches into windows decayed by 0.9: 0.81 + 0.9 + 1
+    assert torch.allclose(state["err_win"]["n"], torch.full((2,), 2.71))
 
 
 def test_distributed_builder_raises_without_gpu(no_gpu, tmp_path):

@@ -2,9 +2,9 @@
 """Run the ``TestOnCard`` classes of ``tests/test_torch_kernels.py``,
 ``tests/test_torch_ebst.py``, ``tests/test_torch_perf.py``,
 ``tests/test_torch_lm_card.py``, ``tests/test_torch_launch.py`` (the
-sharded train step over a one-rank NCCL mesh) and
-``tests/test_torch_forest_many_trees.py`` on a GPU machine without
-JAX: the
+sharded train step over a one-rank NCCL mesh),
+``tests/test_torch_forest_many_trees.py`` and
+``tests/test_torch_forest.py`` on a GPU machine without JAX: the
 modules' JAX and reference imports (which only their CPU tests use) are
 stubbed with empty modules.  ``CUBLAS_WORKSPACE_CONFIG`` is set for the
 deterministic resume test before CUDA starts.
@@ -23,7 +23,8 @@ import types
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STUBS = ("jax", "jax.numpy", "repro", "repro.kernels", "repro.kernels.ops",
-         "repro.core", "repro.core.ebst")
+         "repro.core", "repro.core.ebst", "repro.core.forest",
+         "repro.core.hoeffding", "repro.core.serve")
 for name in STUBS:
     sys.modules[name] = types.ModuleType(name)
 for name in STUBS:
@@ -52,4 +53,5 @@ sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest",
                                   "test_torch_perf.py",
                                   "test_torch_lm_card.py",
                                   "test_torch_launch.py",
-                                  "test_torch_forest_many_trees.py"))]))
+                                  "test_torch_forest_many_trees.py",
+                                  "test_torch_forest.py"))]))
